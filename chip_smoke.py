@@ -4,16 +4,25 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc/``
-with nvcc for sm_90a, holds each kernel against its plain PyTorch version on
-the card, drives the port's main path (``GEEEmbedder.fit_transform`` with the
-``cuda`` backend, fused and staged) on the paper's 10k-node SBM (all 8 option
-settings) and on the ``cl-100k-1d8-l5`` stand-in (20 M directed edges),
-checks the embeddings against the port's ``sparse_torch`` reference (and the
-default setting against SciPy on the host), times every kernel with CUDA
-events beside its memory bound, and prints one JSON line per kernel.  The
-last line of standard output is ``{"ok": true, "device": {...}}``.  Any
-failure exits non-zero before that line.  Details go to
-``chiprun_out/chip_smoke.json``.
+with nvcc for sm_90a (one compile per source, in parallel), holds each kernel
+against its plain PyTorch version on the card, and drives the port's two
+paths on the paper's 10k-node SBM and on the ``cl-100k-1d8-l5`` stand-in
+(20 M directed edges):
+
+* the embedding (``GEEEmbedder.fit_transform`` with the ``cuda`` backend,
+  fused and staged; all 8 option settings on the SBM), held against the
+  port's ``sparse_torch`` reference and the default setting against SciPy
+  on the host;
+* vertex-similarity retrieval (``build_index``, then 4,096 vertex-id queries
+  through ``GEEQueryService`` in flushes of 64, fused and staged, at the
+  default nprobe and at full probe, and brute force; l2 and cosine), with
+  full probe held equal to brute force and fused to staged.
+
+Each path runs with every kernel's launch count set to 0 just before it and
+read just after.  Every kernel is timed with CUDA events beside its bound.
+The line before the last lists the seven kernels; the last line of standard
+output is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
+before those lines.  Details go to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -35,13 +45,26 @@ FP32_OPS_PER_S = 67e12         # H100 SXM float32 rate outside the tensor cores
 # row (below): a Laplacian-scaled row of a hub holds values near 1e-6, so a
 # fixed 1e-5 would pass a row that lost most of its terms.
 RTOL = ATOL = 1e-5
+# The retrieval scores are held to the f32 round-off of the terms they are
+# computed from (``term_scale``), not to their own size: 1e-6 of the terms,
+# about 8 units of f32 round-off.
+TERM_ATOL = 1e-6
 DEVICE = "cuda"
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/gee_kernels.cu"
+TOPK_SOURCE = "src/repro_torch/kernels/csrc/topk_kernels.cu"
 REPLACES = {
     "gee_spmm": "src/repro/kernels/gee_spmm.py:208",
     "row_norm": "src/repro/kernels/row_norm.py:26",
     "gee_spmm_fused": "src/repro/kernels/gee_fused.py:122",
+    "pairwise_scores": "src/repro/kernels/topk_score.py:171",
+    "gathered_scores": "src/repro/kernels/topk_score.py:184",
+    "scored_topk": "src/repro/kernels/topk_score.py:379",
+    "scored_topk_gathered": "src/repro/kernels/topk_score.py:407",
 }
+# the retrieval path (phase 8): vertex-id queries, flushes of 64, top 10
+N_QUERIES = 4096
+FLUSH = 64
+TOP_K = 10
 
 
 def say(line: str) -> None:
@@ -63,13 +86,15 @@ class Recorder:
     # main-path launches, so they land here and are dropped.
     launches = 0
 
-    def __init__(self, module, name):
+    def __init__(self, module, name, keep=None):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
         self.calls = []
+        self.keep = keep                 # keep the first ``keep`` calls
 
     def __call__(self, *args, **kwargs):
-        self.calls.append((args, kwargs))
+        if self.keep is None or len(self.calls) < self.keep:
+            self.calls.append((args, kwargs))
         return self.fn(*args, **kwargs)
 
     def __enter__(self):
@@ -115,12 +140,14 @@ def host_ms(torch, fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def max_err(torch, got, want) -> tuple:
+def max_err(torch, got, want, scale=None) -> tuple:
     """Hold ``got`` against ``want`` row by row: each entry within
     ``RTOL * |want| + ATOL * min(1, max |want row|)``, so every row is held
     to its own scale and never more loosely than rtol = atol = 1e-5; a row
-    that should be all zeros must be exactly zero.  Returns the max-abs
-    error and the max over rows of max |got - want| / max |want|."""
+    that should be all zeros must be exactly zero.  A retrieval score's row
+    passes ``scale`` [rows, 1], its ``term_scale``: each entry is then held
+    within ``RTOL * |want| + TERM_ATOL * scale``.  Returns the max-abs error
+    and the max over rows of max |got - want| / the row's scale."""
     if got.shape != want.shape:
         raise AssertionError(f"shape {tuple(got.shape)} != "
                              f"{tuple(want.shape)}")
@@ -128,9 +155,14 @@ def max_err(torch, got, want) -> tuple:
         return 0.0, 0.0
     g = got.detach().double().reshape(got.shape[0], -1)
     w = want.detach().to(g.device).double().reshape(want.shape[0], -1)
-    scale = w.abs().amax(dim=1, keepdim=True)
+    if scale is None:
+        scale = w.abs().amax(dim=1, keepdim=True)
+        atol = ATOL * scale.clamp(max=1.0)
+    else:
+        scale = torch.as_tensor(scale).to(g.device).double().reshape(-1, 1)
+        atol = TERM_ATOL * scale
     diff = (g - w).abs()
-    bad = ~(diff <= RTOL * w.abs() + ATOL * scale.clamp(max=1.0))  # NaN: bad
+    bad = ~(diff <= RTOL * w.abs() + atol)                       # NaN: bad
     row_err = diff.amax(dim=1, keepdim=True)
     rel = torch.where(scale > 0, row_err / scale,
                       torch.where(row_err > 0, float("inf"), 0.0))
@@ -214,6 +246,202 @@ def edge_cases(torch, kernels, refs, errs):
     return n_cases
 
 
+# ---------------------------------------------------------------------------
+# retrieval: comparisons
+# ---------------------------------------------------------------------------
+
+def score_err(torch, got, want, scale=None) -> tuple:
+    """``max_err`` for masked scores: NEG_INF entries must be equal exactly,
+    and are left out of the rest (and of each row's scale)."""
+    from repro_torch.kernels.ref import NEG_INF
+
+    gm, wm = got == NEG_INF, want.to(got.device) == NEG_INF
+    if not torch.equal(gm, wm):
+        raise AssertionError(f"NEG_INF entries differ in "
+                             f"{int((gm != wm).sum())} places")
+    return max_err(torch, torch.where(gm, 0.0, got),
+                   torch.where(wm, 0.0, want.to(got.device)), scale)
+
+
+def term_scale(torch, q, x, metric):
+    """[Q, 1]: the size of the terms each query's scores are computed from,
+    which scores are held to in place of their own row's max (``max_err``'s
+    ``scale``, times ``TERM_ATOL``).  An l2 score (2·dot − ‖q‖²) − ‖x‖²
+    rounds like ‖q‖² + ‖x‖² however small the difference (a row of a vertex
+    against 5 nearby centroids holds only scores near 1e-3); the summands
+    of a cosine score are bounded by 1.  ``x`` is the database [M, K] or
+    the candidates [Q, M, K]."""
+    if metric == "cosine":
+        return torch.ones((q.shape[0], 1), dtype=torch.float64,
+                          device=q.device)
+    qn2 = q.double().square().sum(dim=1, keepdim=True)
+    xn2 = x.double().square().sum(dim=-1)
+    xn2 = xn2.amax() if x.dim() == 2 else xn2.amax(dim=1, keepdim=True)
+    return qn2 + xn2
+
+
+def check_topk(torch, got, want, full, scale, cand_ids=None,
+               exact=False) -> tuple:
+    """Hold a top-k kernel's ``(ids, scores)`` against its plain version's.
+
+    ``full`` is the plain [Q, M] score matrix, ``scale`` its
+    ``term_scale`` and ``cand_ids`` [Q, M] each candidate's database id
+    (``None``: the id is the position).  Scores as ``score_err``; masked
+    slots (-1) in the same places; every returned id a
+    distinct candidate whose plain score is its reported score; and the id
+    equal to the plain version's wherever no other candidate's plain score
+    lies within the round-off (``TERM_ATOL * scale``, no rtol) of that
+    slot's.  ``exact``: ids and scores equal bit for bit, tie order
+    included."""
+    err = score_err(torch, got[1], want[1], scale)
+    gi, gs, wi, ws = (t.cpu().numpy() for t in (*got, *want))
+    if exact:
+        if not (np.array_equal(gi, wi) and np.array_equal(gs, ws)):
+            raise AssertionError("top-k differs on exactly representable "
+                                 "inputs")
+        return err
+    if not np.array_equal(gi < 0, wi < 0):
+        raise AssertionError("masked top-k slots differ")
+    atol = TERM_ATOL * scale.cpu().numpy().reshape(-1, 1)
+    full = full.cpu().numpy().astype(np.float64)
+    ci = None if cand_ids is None else cand_ids.cpu().numpy()
+    for r in range(gi.shape[0]):
+        live = gi[r] >= 0
+        ids = gi[r][live]
+        if len(set(ids.tolist())) != ids.size:
+            raise AssertionError(f"row {r}: an id repeats")
+        if ci is None:
+            pos = ids
+        else:
+            order = np.argsort(ci[r], kind="stable")
+            pos = order[np.searchsorted(ci[r][order], ids)]
+            if not np.array_equal(ci[r][pos], ids):
+                raise AssertionError(f"row {r}: an id is no candidate")
+        true = full[r, pos]
+        tol = RTOL * np.abs(true) + atol[r]
+        if np.any(np.abs(true - gs[r][live]) > tol):
+            raise AssertionError(f"row {r}: an id's plain score is not its "
+                                 f"reported score")
+        for j in np.flatnonzero(live):
+            w = float(ws[r, j])
+            if np.count_nonzero(np.abs(full[r] - w) <= atol[r, 0]) <= 1 \
+                    and gi[r, j] != wi[r, j]:
+                raise AssertionError(f"row {r} slot {j}: id {gi[r, j]} != "
+                                     f"{wi[r, j]} with no near tie")
+    return err
+
+
+def same_topk(got_ids, got_s, want_ids, want_s, scale) -> list:
+    """Path-level agreement of two top-k results (numpy): the same masked
+    slots; scores within the tolerance (``scale``: each query's
+    ``term_scale``) slot by slot; ids equal where ``want``'s neighbouring
+    scores differ by more than the round-off (``TERM_ATOL * scale``, no
+    rtol: a cosine score near 1 would otherwise tie everything within
+    1e-5), and within such a near-tie group the same set.  A group that reaches slot k-1 may continue past k, so
+    its members are held by score only.  Returns the sizes of the near-tie
+    groups of two or more slots."""
+    if got_ids.shape != want_ids.shape:
+        raise AssertionError(f"shape {got_ids.shape} != {want_ids.shape}")
+    if not np.array_equal(got_ids < 0, want_ids < 0):
+        raise AssertionError("masked slots differ")
+    live = want_ids >= 0
+    g = np.where(live, got_s, 0.0).astype(np.float64)
+    w = np.where(live, want_s, 0.0).astype(np.float64)
+    tie = TERM_ATOL * scale
+    tol = RTOL * np.abs(w) + tie
+    if np.any(np.abs(g - w) > tol):
+        r = int(np.flatnonzero((np.abs(g - w) > tol).any(axis=1))[0])
+        raise AssertionError(f"row {r}: scores {got_s[r]} != {want_s[r]}")
+    k = w.shape[1]
+    groups = []
+    for r in range(w.shape[0]):
+        j0 = 0
+        while j0 < k:
+            j1 = j0
+            while j1 + 1 < k and abs(w[r, j1 + 1] - w[r, j1]) <= tie[r, 0]:
+                j1 += 1
+            if j1 < k - 1 and set(got_ids[r, j0:j1 + 1].tolist()) != set(
+                    want_ids[r, j0:j1 + 1].tolist()):
+                raise AssertionError(f"row {r}: ids {got_ids[r]} != "
+                                     f"{want_ids[r]}")
+            if j1 > j0:
+                groups.append(j1 - j0 + 1)
+            j0 = j1 + 1
+    return groups
+
+
+def topk_edge_cases(torch, ts, ref, errs) -> int:
+    """The four retrieval kernels against their plain versions, both
+    metrics: K = 1 and K = 200; Q = 1; M = 1; k > M; k = MAX_TOPK and
+    MAX_TOPK + 1 (the staged route); all slots masked; zero-norm rows; M off
+    every block and chunk size; and integer-valued inputs with many exact
+    ties, where every sum is exact whatever its order, so ids and scores must
+    equal the plain version's bit for bit."""
+    rng = np.random.default_rng(1)
+    dev = DEVICE
+    mt = ts.MAX_TOPK
+    # (Q, M, K, k, integer-valued, all masked)
+    cases = [(1, 1, 1, 1, False, False), (1, 1, 3, 5, False, False),
+             (3, 7, 1, 10, False, False), (5, 300, 200, 10, False, False),
+             (64, 5, 5, 3, False, False), (17, 1007, 9, mt, False, False),
+             (17, 1007, 9, mt + 1, False, False),
+             (64, 70001, 5, 10, False, False), (1, 5000, 3, mt, False, False),
+             (200, 2000, 3, 10, False, False), (9, 333, 4, 10, False, True),
+             (64, 20000, 3, 10, True, False), (3, 4097, 2, mt, True, False),
+             (5, 900, 1, mt + 1, True, False), (2, 50, 5, 64, True, False)]
+    n = 0
+    for q_, m_, k_dim, k, integer, all_masked in cases:
+        def gen(shape):
+            if integer:
+                return rng.integers(-2, 3, shape).astype(np.float32)
+            return rng.standard_normal(shape).astype(np.float32)
+
+        q = torch.from_numpy(gen((q_, k_dim))).to(dev)
+        x = torch.from_numpy(gen((m_, k_dim))).to(dev)
+        cand = torch.from_numpy(gen((q_, m_, k_dim))).to(dev)
+        q[0] = 0.0                                 # zero-norm rows
+        x[0] = 0.0
+        cand[:, 0] = 0.0
+        live = 0.0 if all_masked else 0.8
+        valid = torch.from_numpy((rng.random(m_) < live).astype(
+            np.float32)).to(dev)
+        mask = torch.from_numpy((rng.random((q_, m_)) < live).astype(
+            np.float32)).to(dev)
+        ids = torch.from_numpy(np.stack([rng.permutation(10 * m_)[:m_]
+                                         for _ in range(q_)]).astype(
+            np.int32)).to(dev)
+        for metric in ("l2", "cosine"):
+            sc, gsc = (term_scale(torch, q, x, metric),
+                       term_scale(torch, q, cand, metric))
+            full = ref.pairwise_scores_ref(q, x, valid, metric)
+            errs["pairwise_scores"].append(score_err(
+                torch, ts.pairwise_scores(q, x, valid, metric=metric), full,
+                sc))
+            gfull = ref.gathered_scores_ref(q, cand, mask, metric)
+            errs["gathered_scores"].append(score_err(
+                torch, ts.gathered_scores(q, cand, mask, metric=metric),
+                gfull, gsc))
+            before = (ts.scored_topk.launches,
+                      ts.scored_topk_gathered.launches)
+            got = ts.scored_topk(q, x, valid, k, metric=metric, fused=True)
+            errs["scored_topk"].append(check_topk(
+                torch, got, ref.masked_topk(full, None, k), full, sc,
+                exact=integer))
+            got = ts.scored_topk_gathered(q, cand, mask, ids, k,
+                                          metric=metric, fused=True)
+            errs["scored_topk_gathered"].append(check_topk(
+                torch, got, ref.masked_topk(gfull, ids, k), gfull, gsc, ids,
+                exact=integer))
+            staged = min(k, m_) > mt
+            fused_runs = (ts.scored_topk.launches - before[0],
+                          ts.scored_topk_gathered.launches - before[1])
+            if fused_runs != ((0, 0) if staged else (1, 1)):
+                raise AssertionError(f"k={k}, M={m_}: the fused kernels ran "
+                                     f"{fused_runs} times")
+            n += 1
+    return n
+
+
 def main() -> int:
     import torch
 
@@ -236,6 +464,9 @@ def main() -> int:
     from repro_torch.kernels.ref import (gee_spmm_fused_ref, gee_spmm_ref,
                                          row_norm_ref)
     from repro_torch.kernels.row_norm import row_norm
+    from repro_torch.kernels import ref as ref_mod
+    from repro_torch.kernels import topk_score as topk_mod
+    from repro_torch.search import index as index_mod
 
     os.makedirs(OUT_DIR, exist_ok=True)
     report = {}
@@ -266,10 +497,25 @@ def main() -> int:
     if lib.gee_kernels_max_classes() != gee_fused.MAX_CLASSES:
         raise AssertionError("MAX_CLASSES differs between the .cu source "
                              "and repro_torch.kernels.gee_fused")
-    say(f"phase 2 build: nvcc {' '.join(build.NVCC_FLAGS)} "
-        f"{KERNEL_SOURCE} -> {os.path.relpath(lib_path, REPO)} in "
-        f"{build_s:.2f} s")
+    if lib.topk_kernels_max_topk() != topk_mod.MAX_TOPK:
+        raise AssertionError("MAX_TOPK differs between the .cu source "
+                             "and repro_torch.kernels.topk_score")
+    # For comparison: the same sources in one nvcc call, one after the other
+    # (after the build above, so the compiler's files are in the page cache).
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        t0 = time.perf_counter()
+        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-shared",
+                        "-o", os.path.join(tmp, "one_call.so"),
+                        *(str(s) for s in build.sources()
+                          if s.suffix == ".cu")],
+                       capture_output=True, check=True)
+        one_call_s = time.perf_counter() - t0
+    say(f"phase 2 build: nvcc {' '.join(build.NVCC_FLAGS)} -c, one per "
+        f"source, in parallel: {KERNEL_SOURCE} {TOPK_SOURCE} -> "
+        f"{os.path.relpath(lib_path, REPO)} in {build_s:.2f} s (the same "
+        f"sources in one nvcc -shared call: {one_call_s:.2f} s)")
     report["build_s"] = build_s
+    report["build_one_call_s"] = one_call_s
 
     # -- phase 3a: kernel vs plain on edge cases -------------------------------
     errs = {name: [] for name in kernels}
@@ -279,6 +525,18 @@ def main() -> int:
     torch.cuda.synchronize()
     say(f"phase 3a kernel vs plain, {n_cases} edge cases: "
         + ", ".join(f"{k} {fmt_err(v)}" for k, v in errs.items()))
+
+    # -- phase 3c: the retrieval kernels vs plain on edge cases --------------
+    rkernels = {"pairwise_scores": topk_mod.pairwise_scores,
+                "gathered_scores": topk_mod.gathered_scores,
+                "scored_topk": topk_mod.scored_topk,
+                "scored_topk_gathered": topk_mod.scored_topk_gathered}
+    errs.update({name: [] for name in rkernels})
+    n_cases = topk_edge_cases(torch, topk_mod, ref_mod, errs)
+    torch.cuda.synchronize()
+    say(f"phase 3c retrieval kernels vs plain, {n_cases} edge cases x "
+        f"(l2, cosine): " + ", ".join(f"{k} {fmt_err(errs[k])}"
+                                     for k in rkernels))
 
     # -- graphs ---------------------------------------------------------------
     t0 = time.perf_counter()
@@ -377,7 +635,7 @@ def main() -> int:
                 n_real += 1
     torch.cuda.synchronize()
     say(f"phase 3b kernel vs plain, {n_real} real launches of the main path: "
-        + ", ".join(f"{k} {fmt_err(v)}" for k, v in errs.items()))
+        + ", ".join(f"{k} {fmt_err(errs[k])}" for k in kernels))
 
     # -- phase 6: timing ------------------------------------------------------
     timing = {}
@@ -458,13 +716,323 @@ def main() -> int:
               f"{peak / 2**20:.1f} MiB")
     report["timing"] = timing
 
+    # -- phase 8: the retrieval path ------------------------------------------
+    from repro_torch.launch.gee_search import recall_at_k
+    from repro_torch.search.service import GEEQueryService
+
+    class fused_env:
+        """``REPRO_GEE_FUSED`` set for the block, then restored."""
+
+        def __init__(self, flag):
+            self.flag = flag
+
+        def __enter__(self):
+            self.prev = os.environ.get(ENV_FUSED)
+            os.environ[ENV_FUSED] = self.flag
+
+        def __exit__(self, *exc):
+            if self.prev is None:
+                del os.environ[ENV_FUSED]
+            else:
+                os.environ[ENV_FUSED] = self.prev
+
+    def replay(index, rows, nprobe=None):
+        """Vertex-id queries through the service, ``FLUSH`` a flush."""
+        svc = GEEQueryService(index, None, flush_every=FLUSH, nprobe=nprobe,
+                              default_k=TOP_K)
+        t0 = time.perf_counter()
+        tickets = [svc.submit_rows(rows[lo:lo + FLUSH])
+                   for lo in range(0, rows.size, FLUSH)]
+        svc.flush()
+        wall = time.perf_counter() - t0
+        flush_ms = list(svc.stats["flush_ms"])
+        svc.close()
+        return (np.concatenate([t.ids for t in tickets]),
+                np.concatenate([t.scores for t in tickets]), wall, flush_ms)
+
+    def brute(index, zq):
+        """Brute-force search in batches of ``FLUSH`` queries."""
+        got = [index.search(zq[lo:lo + FLUSH], TOP_K, brute_force=True)
+               for lo in range(0, zq.shape[0], FLUSH)]
+        return (torch.cat([i for i, _ in got]).cpu().numpy(),
+                torch.cat([s for _, s in got]).cpu().numpy())
+
+    def hold_true_scores(index, zq, ids, scores, metric, scale):
+        """Every returned id's plain score equals its reported score."""
+        t_ids = torch.from_numpy(ids).to(DEVICE)
+        cand = index.z[t_ids.clamp(min=0).long()]
+        want = ref_mod.gathered_scores_ref(zq, cand, (t_ids >= 0).float(),
+                                           metric)
+        return score_err(torch, torch.from_numpy(scores).to(DEVICE), want,
+                         scale)
+
+
+    def retrieval_graph(g, seed):
+        """A default fit of ``g`` and ``N_QUERIES`` query rows."""
+        _, labels, k = graphs[g]
+        emb = GEEEmbedder(num_classes=k).fit(prepared[g], labels)
+        emb.transform()
+        rows = np.random.default_rng(seed).integers(
+            0, prepared[g].num_nodes, N_QUERIES)
+        return emb, rows
+
+    # Capture the retrieval kernels' exact inputs on the main path (before
+    # the counts are reset, so these launches do not count).
+    rcaptured = {}
+    for g in graphs:
+        emb, rows = retrieval_graph(g, 1)
+        for metric in ("l2", "cosine"):
+            with Recorder(index_mod, "pairwise_scores") as rec_b:
+                index = emb.build_index(metric=metric)
+            zq = index.z[torch.from_numpy(rows[:2 * FLUSH]).to(DEVICE)]
+            with fused_env("1"), \
+                    Recorder(index_mod, "pairwise_scores", keep=2) as rec_p, \
+                    Recorder(index_mod, "scored_topk_gathered",
+                             keep=2) as rec_g:
+                replay(index, rows[:2 * FLUSH])
+            with fused_env("0"), \
+                    Recorder(topk_mod, "gathered_scores", keep=2) as rec_s:
+                replay(index, rows[:2 * FLUSH])
+            with fused_env("1"), \
+                    Recorder(index_mod, "scored_topk", keep=2) as rec_t:
+                brute(index, zq)
+            rcaptured[(g, metric)] = {
+                "pairwise_scores": rec_b.calls + rec_p.calls,
+                "gathered_scores": rec_s.calls,
+                "scored_topk": rec_t.calls,
+                "scored_topk_gathered": rec_g.calls}
+    torch.cuda.synchronize()
+
+    for fn in list(kernels.values()) + list(rkernels.values()):
+        fn.launches = 0
+    retrieval = {}
+    t0 = time.perf_counter()
+    for g in graphs:
+        emb, rows = retrieval_graph(g, 2)
+        for metric in ("l2", "cosine"):
+            tb = time.perf_counter()
+            index = emb.build_index(metric=metric)
+            torch.cuda.synchronize()
+            build_ms = (time.perf_counter() - tb) * 1e3
+            with fused_env("1"):
+                ids_f, s_f, wall, flush_ms = replay(index, rows)
+            with fused_env("0"):
+                ids_s, s_s, wall_s, flush_ms_s = replay(index, rows)
+            with fused_env("1"):
+                ids_full, s_full, _, _ = replay(index, rows,
+                                                nprobe=index.num_cells)
+            zq = index.z[torch.from_numpy(rows).to(DEVICE)]
+            with fused_env("1"):
+                ids_bf, s_bf = brute(index, zq)
+            with fused_env("0"):
+                ids_bs, s_bs = brute(index, zq)
+            for ids in (ids_f, ids_s, ids_full, ids_bf, ids_bs):
+                if ids.shape != (N_QUERIES, TOP_K):
+                    raise AssertionError(f"{g} {metric}: shape {ids.shape}")
+            for s in (s_f, s_s, s_full, s_bf, s_bs):
+                if not np.isfinite(s).all():
+                    raise AssertionError(f"{g} {metric}: non-finite score")
+            scale = term_scale(torch, zq, index.z, metric)
+            scale_np = scale.cpu().numpy()
+            ties = (same_topk(ids_s, s_s, ids_f, s_f, scale_np)  # routes
+                    + same_topk(ids_bs, s_bs, ids_bf, s_bf, scale_np)
+                    + same_topk(ids_full, s_full, ids_bf, s_bf,
+                                scale_np))                     # exact
+            score_errs = [hold_true_scores(index, zq, i, s, metric, scale)
+                          for i, s in ((ids_f, s_f), (ids_s, s_s),
+                                       (ids_full, s_full), (ids_bf, s_bf))]
+            recall = recall_at_k(ids_f, s_f, ids_bf, s_bf)
+            recall_full = recall_at_k(ids_full, s_full, ids_bf, s_bf)
+            if recall_full != 1.0:
+                raise AssertionError(f"{g} {metric}: full-probe recall "
+                                     f"{recall_full}")
+            lat = np.asarray(flush_ms)
+            retrieval[f"{g} {metric}"] = {
+                "num_cells": index.num_cells, "nprobe": index.nprobe,
+                "bucket_capacity": index.bucket_capacity,
+                "padding_fraction": index.padding_fraction(),
+                "build_ms": build_ms,
+                "recall_at_10": recall, "recall_at_10_full_probe":
+                recall_full, "qps_fused": N_QUERIES / wall,
+                "qps_staged": N_QUERIES / wall_s,
+                "flush_ms_p50": float(np.percentile(lat, 50)),
+                "flush_ms_p95": float(np.percentile(lat, 95)),
+                "flush_ms_p50_staged": float(np.percentile(flush_ms_s, 50)),
+                "score_err": worst(score_errs),
+                # the size of the scores the tolerance separates: slots 1-9
+                # of brute force (slot 0 is the query vertex itself)
+                "top10_score_median": float(np.median(s_bf[:, 1:])),
+                "slot10_score_median": float(np.median(s_bf[:, -1])),
+                "tolerance_median": float(np.median(TERM_ATOL * scale_np)),
+                "near_tie_groups": len(ties),
+                "near_tie_group_max": max(ties, default=0)}
+    torch.cuda.synchronize()
+    phase8_s = time.perf_counter() - t0
+    rlaunches = {name: fn.launches for name, fn in rkernels.items()}
+    fit_launches = {name: fn.launches for name, fn in kernels.items()}
+
+    # the captured calls against the plain versions
+    plain_r = {
+        "pairwise_scores": lambda q, x, v=None, metric="l2":
+            ref_mod.pairwise_scores_ref(q, x, v, metric),
+        "gathered_scores": lambda q, c, m, metric="l2":
+            ref_mod.gathered_scores_ref(q, c, m, metric),
+        "scored_topk": lambda q, x, v, k, metric="l2", fused=None:
+            ref_mod.scored_topk_ref(q, x, v, k, metric),
+        "scored_topk_gathered":
+            lambda q, c, m, i, k, metric="l2", fused=None:
+            ref_mod.scored_topk_gathered_ref(q, c, m, i, k, metric)}
+    n_real = 0
+    for calls_by_name in rcaptured.values():
+        for name, calls in calls_by_name.items():
+            for a, kw in calls:
+                got = rkernels[name](*a, **kw)
+                want = plain_r[name](*a, **kw)
+                sc = term_scale(torch, a[0], a[1], kw["metric"])
+                if name == "scored_topk":
+                    full = ref_mod.pairwise_scores_ref(a[0], a[1], a[2],
+                                                       kw["metric"])
+                    errs[name].append(check_topk(torch, got, want, full, sc))
+                elif name == "scored_topk_gathered":
+                    full = ref_mod.gathered_scores_ref(a[0], a[1], a[2],
+                                                       kw["metric"])
+                    errs[name].append(check_topk(torch, got, want, full, sc,
+                                                 a[3]))
+                else:
+                    errs[name].append(score_err(torch, got, want, sc))
+                n_real += 1
+    torch.cuda.synchronize()
+    say(f"phase 8 retrieval path, {N_QUERIES} vertex-id queries in flushes "
+        f"of {FLUSH}, top {TOP_K}, fused and staged, brute force and full "
+        f"probe, on both graphs x (l2, cosine) in {phase8_s:.1f} s: "
+        + "; ".join(f"{key} recall@10 {r['recall_at_10']:.4f} at nprobe "
+                    f"{r['nprobe']} of {r['num_cells']} (full probe "
+                    f"{r['recall_at_10_full_probe']:.1f}; top-10 scores "
+                    f"median {r['top10_score_median']:.3g}, tolerance "
+                    f"{r['tolerance_median']:.3g}, "
+                    f"{r['near_tie_groups']} near-tie groups of up to "
+                    f"{r['near_tie_group_max']})"
+                    for key, r in retrieval.items())
+        + f"; fused == staged, full probe == brute force; launches "
+          f"{rlaunches} (and the fits' {fit_launches}); {n_real} captured "
+          f"launches "
+          f"vs plain: " + ", ".join(f"{k} {fmt_err(errs[k])}"
+                                     for k in rkernels))
+    report["retrieval"] = retrieval
+    report["retrieval_launches"] = rlaunches
+
+    # -- phase 9: retrieval timing --------------------------------------------
+    def work(name, a, kw):
+        """(bytes, operations) the call must move and do on this run's
+        data: each input read once, each output written once; a masked
+        gathered slot reads no candidate, and the gathered top-k reads only
+        its winners' ids.  A score is 3 multiply-adds per
+        class plus ~4 operations."""
+        q = a[0]
+        nq, kd = q.shape
+        if name in ("pairwise_scores", "scored_topk"):
+            m = a[1].shape[0]
+            valid = a[2] if len(a) > 2 else kw.get("valid")
+            nbytes = 4 * (nq * kd + m * kd
+                          + (m if valid is not None else 0))
+            live = nq * m
+        else:
+            m = a[1].shape[1]
+            live = int((a[2] > 0).sum())
+            nbytes = 4 * (live * kd + nq * kd + nq * m)
+            if name == "scored_topk_gathered":
+                nbytes += 4 * nq * min(a[4], m)        # the winners' ids
+        if name in ("pairwise_scores", "gathered_scores"):
+            nbytes += 4 * nq * m
+        else:
+            nbytes += 8 * nq * (a[3] if name == "scored_topk" else a[4])
+        return nbytes, live * (6 * kd + 4)
+
+    rtiming = {}
+    for g in graphs:
+        cap = rcaptured[(g, "l2")]
+        tg = {}
+        for name, calls in cap.items():
+            picks = {"pairwise_scores": {"build": calls[0],
+                                         "probe": calls[1]}}.get(
+                name, {"flush": calls[0]})
+            for shape_name, (a, kw) in picks.items():
+                nbytes, nops = work(name, a, kw)
+                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                ops_ms = nops / FP32_OPS_PER_S * 1e3
+                entry = {
+                    "shape": [list(t.shape) for t in a
+                              if isinstance(t, torch.Tensor)],
+                    "ms": gpu_ms(torch, lambda: rkernels[name](*a, **kw)),
+                    "plain_ms": gpu_ms(torch, lambda: plain_r[name](*a, **kw),
+                                       reps=10),
+                    "library_ms": None, "bytes": nbytes, "operations": nops,
+                    "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": "bytes" if bytes_ms >= ops_ms
+                    else "operations"}
+                if name == "scored_topk":
+                    entry["staged_ms"] = gpu_ms(torch, lambda: topk_mod.
+                                                masked_topk(topk_mod.
+                                                pairwise_scores(a[0], a[1],
+                                                a[2], metric="l2"), None,
+                                                a[3]))
+                elif name == "scored_topk_gathered":
+                    entry["staged_ms"] = gpu_ms(torch, lambda: topk_mod.
+                                                masked_topk(topk_mod.
+                                                gathered_scores(a[0], a[1],
+                                                a[2], metric="l2"), a[3],
+                                                a[4]))
+                tg[f"{name} {shape_name}"] = entry
+        # launches per build and per flush, counted
+        emb, rows = retrieval_graph(g, 3)
+        counted = {}
+        for what, flag in (("build", None), ("flush_fused", "1"),
+                           ("flush_staged", "0")):
+            if what == "build":
+                for fn in rkernels.values():
+                    fn.launches = 0
+                index = emb.build_index(metric="l2")
+            else:
+                for fn in rkernels.values():
+                    fn.launches = 0
+                with fused_env(flag):
+                    replay(index, rows[:FLUSH])
+            counted[what] = {n: fn.launches for n, fn in rkernels.items()}
+        tg["launches"] = counted
+        tg["index_build_ms"] = host_ms(
+            torch, lambda: emb.build_index(metric="l2"), reps=5)
+        rtiming[g] = tg
+        r = retrieval[f"{g} l2"]
+        say(f"phase 9 retrieval timing {g} (l2, {card}): "
+            + "; ".join(f"{n} {e['ms']:.4f} ms (bound {e['bound_ms']:.4f} "
+                        f"by {e['bound_by']}, plain {e['plain_ms']:.4f}"
+                        + (f", staged {e['staged_ms']:.4f}"
+                           if "staged_ms" in e else "") + ")"
+                        for n, e in tg.items()
+                        if isinstance(e, dict) and "ms" in e)
+            + f"; index build {tg['index_build_ms']:.2f} ms; replay "
+              f"{r['qps_fused']:,.0f} QPS fused ({r['qps_staged']:,.0f} "
+              f"staged), flush p50 {r['flush_ms_p50']:.3f} ms p95 "
+              f"{r['flush_ms_p95']:.3f} ms; launches {counted}")
+    report["retrieval_timing"] = rtiming
+
     # -- phase 7: the kernels line -------------------------------------------
+    # Slice 1's kernels: ms per fit of cl-100k-1d8-l5.  The retrieval
+    # kernels: ms per launch at cl-100k-1d8-l5's l2 shapes (pairwise_scores
+    # at the index build, the others at a flush).
     line = {"kernels": []}
-    for name in kernels:
-        t = timing["cl-100k-1d8-l5"][name]
+    rt = rtiming["cl-100k-1d8-l5"]
+    for name in list(kernels) + list(rkernels):
+        if name in kernels:
+            t, source, n = (timing["cl-100k-1d8-l5"][name], KERNEL_SOURCE,
+                            launches[name])
+        else:
+            t = rt[f"{name} build" if name == "pairwise_scores"
+                   else f"{name} flush"]
+            source, n = TOPK_SOURCE, rlaunches[name]
         line["kernels"].append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": REPLACES[name], "launches": n,
             "max_abs_err": worst(errs[name])[0],
             "max_rel_err": worst(errs[name])[1], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -472,7 +1040,7 @@ def main() -> int:
     report["kernels"] = line["kernels"]
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
-    missing = [n for n, c in launches.items() if c <= 0]
+    missing = [k["name"] for k in line["kernels"] if k["launches"] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")

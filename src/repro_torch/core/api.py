@@ -1,5 +1,6 @@
 """Public API: ``GEEEmbedder`` (port of the in-memory part of
-``repro/core/api.py``).
+``repro/core/api.py``, with similarity retrieval: ``build_index``,
+``neighbors``, ``index``).
 
 The embedder runs on the card unless the caller asks for the CPU:
 ``device=None`` resolves to ``cuda`` and raises ``RuntimeError`` when no GPU
@@ -18,6 +19,8 @@ from repro_torch import resolve_device
 from repro_torch.core.gee import GEEOptions
 from repro_torch.core.plan import GEEPlan, PreparedGraph
 from repro_torch.graph.containers import EdgeList
+from repro_torch.search.index import (DEFAULT_PAD_MULTIPLE,
+                                      ClassPartitionedIndex)
 
 
 @dataclasses.dataclass
@@ -40,6 +43,8 @@ class GEEEmbedder:
     _labels: Optional[torch.Tensor] = dataclasses.field(default=None,
                                                         repr=False)
     _z: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
+    _index: Optional[ClassPartitionedIndex] = dataclasses.field(
+        default=None, repr=False)
 
     # -- construction helpers ------------------------------------------------
     @staticmethod
@@ -65,6 +70,7 @@ class GEEEmbedder:
         self._labels = torch.as_tensor(labels).to(device=device,
                                                   dtype=torch.int32)
         self._z = None
+        self._reset_index()
         return self
 
     @property
@@ -111,6 +117,47 @@ class GEEEmbedder:
         d2 = torch.where(torch.isnan(d2), torch.full_like(d2, float("inf")),
                          d2)
         return torch.argmin(d2, dim=-1).to(torch.int32)
+
+    # -- similarity retrieval on top of the embedding ------------------------
+    def build_index(self, *, metric: str = "l2", nprobe: int | None = None,
+                    pad_multiple: int | None = None) -> ClassPartitionedIndex:
+        """Build (and cache) a vertex-similarity index over the embedding,
+        on this embedder's device: a :class:`ClassPartitionedIndex` whose
+        coarse cells are the class structure."""
+        self._index = ClassPartitionedIndex.build(
+            self.transform(), self._labels.cpu().numpy(), self.num_classes,
+            metric=metric, nprobe=nprobe,
+            pad_multiple=pad_multiple or DEFAULT_PAD_MULTIPLE)
+        return self._index
+
+    def neighbors(self, query_rows=None, k: int = 10, *, queries=None,
+                  nprobe: int | None = None, brute_force: bool = False):
+        """Top-``k`` most similar vertices per query.
+
+        ``query_rows`` queries by vertex id (each vertex is its own best
+        hit); ``queries`` passes explicit [Q, K] vectors instead.  Builds
+        the index on first use.  Returns ``(ids [Q, k] int32, scores [Q, k]
+        f32)`` on the embedder's device.
+        """
+        if self._index is None:
+            self.build_index()
+        if queries is not None:
+            return self._index.search(queries, k, nprobe=nprobe,
+                                      brute_force=brute_force)
+        if query_rows is None:
+            raise ValueError("pass query_rows (vertex ids) or queries "
+                             "(explicit vectors)")
+        return self._index.search_rows(query_rows, k, nprobe=nprobe,
+                                       brute_force=brute_force)
+
+    @property
+    def index(self) -> Optional[ClassPartitionedIndex]:
+        """The cached similarity index (None until ``build_index`` /
+        ``neighbors``)."""
+        return self._index
+
+    def _reset_index(self) -> None:
+        self._index = None
 
 
 __all__ = ["GEEEmbedder"]

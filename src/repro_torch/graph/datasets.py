@@ -11,6 +11,7 @@ packages.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict
 
 import numpy as np
@@ -87,4 +88,23 @@ def synth_like(spec: DatasetSpec, seed: int = 0, pad_to: int | None = None,
     return GraphDataset(spec=spec, edges=edges, labels=labels)
 
 
-__all__ = ["DatasetSpec", "TABLE2", "GraphDataset", "synth_like"]
+def load(name: str, seed: int = 0, pad_to: int | None = None,
+         device=None) -> GraphDataset:
+    """Resolve a Table 2 spec name to its synthetic stand-in (the same graph
+    as the reference's ``load`` for the same seed), on ``device``
+    (``None``: the card).  Edge-file paths, which the reference also takes,
+    wait for the port of the out-of-core reader."""
+    key = name.lower()
+    if key in TABLE2:
+        return synth_like(TABLE2[key], seed=seed, pad_to=pad_to,
+                          device=device)
+    if (os.path.sep in name or os.path.exists(name)
+            or os.path.splitext(name)[1]):
+        raise NotImplementedError(
+            f"{name!r} looks like an edge-file path; loading edge files is "
+            f"not yet ported to repro_torch")
+    raise KeyError(f"unknown dataset {name!r} (not a Table 2 name); "
+                   f"available: {sorted(TABLE2)}")
+
+
+__all__ = ["DatasetSpec", "TABLE2", "GraphDataset", "synth_like", "load"]

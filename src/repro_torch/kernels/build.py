@@ -2,7 +2,8 @@
 
 ``nvcc`` compiles every source under ``csrc/`` into one shared library with a
 plain C interface, once, at first use, into ``build/repro_torch/`` at the
-root of the checkout.  The library's name carries a hash of the sources and
+root of the checkout: one ``nvcc -c`` per source, all started together, then
+one link.  The library's name carries a hash of the sources and
 flags, so an edited kernel is rebuilt and an unchanged one is reused.  It is
 loaded with ``ctypes``; every pointer and the stream pass as ``c_void_p``.
 
@@ -30,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # No --use_fast_math: the kernels rely on IEEE sqrtf/division and on
 # denormals not being flushed.  -Xptxas -v reports registers and spills.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -46,6 +47,26 @@ _SIGNATURES = {
     # z, out, N, K, eps, stream
     "row_norm_launch": ([_P, _P, ctypes.c_int64, ctypes.c_int,
                          ctypes.c_float, _P], ctypes.c_int),
+    "topk_kernels_max_topk": ([], ctypes.c_int),
+    # q, x, valid, out, Q, M, K, metric, stream
+    "pairwise_scores_launch": ([_P, _P, _P, _P, ctypes.c_int64,
+                                ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                                _P], ctypes.c_int),
+    # cand, q, mask, out, Q, M, K, metric, stream
+    "gathered_scores_launch": ([_P, _P, _P, _P, ctypes.c_int64,
+                                ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                                _P], ctypes.c_int),
+    # q, x, valid, part_s, part_m, out_s, out_ids, Q, M, K, metric, k,
+    # chunks, stream
+    "scored_topk_launch": ([_P, _P, _P, _P, _P, _P, _P, ctypes.c_int64,
+                            ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
+    # cand, q, mask, ids, part_s, part_m, out_s, out_ids, Q, M, K, metric,
+    # k, chunks, stream
+    "scored_topk_gathered_launch": ([_P, _P, _P, _P, _P, _P, _P, _P,
+                                     ctypes.c_int64, ctypes.c_int64,
+                                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_int, _P], ctypes.c_int),
 }
 
 
@@ -53,7 +74,7 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
@@ -85,17 +106,32 @@ def build() -> tuple[Path, str]:
     if path.exists():
         return path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed (rc={proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, path)             # atomic: a concurrent loader sees all
-    return path, proc.stdout + proc.stderr
+    nvcc = nvcc_path()
+    cu = [s for s in sources() if s.suffix == ".cu"]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, s.stem + ".o") for s in cu]
+        tmp = os.path.join(tmpdir, path.name)
+        # one compile per source, all running at once, then one link
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)]
+                for s, o in zip(cu, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        outs = [p.communicate()[0] for p in procs]
+        for cmd, proc, out in zip(cmds, procs, outs):
+            _check_nvcc(cmd, proc.returncode, out)
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
+        link = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        outs.append(link.stdout)
+        _check_nvcc(cmd, link.returncode, link.stdout)
+        os.replace(tmp, path)         # atomic: a concurrent loader sees all
+    return path, "".join(outs)
+
+
+def _check_nvcc(cmd: list[str], rc: int, out: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed (rc={rc}): {' '.join(cmd)}\n{out}")
 
 
 @functools.cache
@@ -148,6 +184,6 @@ def check_launch(lib: ctypes.CDLL, rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {rc} ({msg})")
 
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "sources", "library_path",
-           "build", "load_library", "check_tensor", "stream_of",
-           "check_launch"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "sources", "nvcc_path",
+           "library_path", "build", "load_library", "check_tensor",
+           "stream_of", "check_launch"]

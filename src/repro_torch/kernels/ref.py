@@ -47,4 +47,101 @@ def gee_spmm_fused_ref(ylab: torch.Tensor, contrib: torch.Tensor,
     return z
 
 
-__all__ = ["gee_spmm_ref", "row_norm_ref", "gee_spmm_fused_ref"]
+# -- retrieval scoring (port of the plain formulas in
+# ``repro/kernels/topk_score.py``) ------------------------------------------
+
+NEG_INF = float(torch.finfo(torch.float32).min)   # masked-slot score
+_COS_EPS = 1e-30
+
+
+def _scores_from_parts(dot, qn2, xn2, metric: str) -> torch.Tensor:
+    """l2: ``(2·dot − qn2) − xn2`` = −‖q − x‖²; cosine:
+    ``dot / (‖q‖‖x‖)``, 0 when ``sqrt(qn2)·sqrt(xn2)`` is 0."""
+    if metric == "l2":
+        return 2.0 * dot - qn2 - xn2
+    if metric != "cosine":
+        raise ValueError(f"unknown metric {metric!r}; pick one of "
+                         f"('l2', 'cosine')")
+    denom = torch.sqrt(qn2) * torch.sqrt(xn2)
+    return torch.where(denom > 0, dot / torch.clamp(denom, min=_COS_EPS),
+                       0.0)
+
+
+def pairwise_scores_ref(queries: torch.Tensor, database: torch.Tensor,
+                        valid: torch.Tensor | None = None,
+                        metric: str = "l2") -> torch.Tensor:
+    """Masked [Q, M] scores of ``queries`` [Q, K] against a shared
+    ``database`` [M, K]; rows with ``valid == 0`` score ``NEG_INF``
+    (``None``: all live)."""
+    q = queries.to(torch.float32)
+    x = database.to(torch.float32)
+    dot = q @ x.T
+    qn2 = torch.sum(q * q, dim=1, keepdim=True)
+    xn2 = torch.sum(x * x, dim=1)[None, :]
+    s = _scores_from_parts(dot, qn2, xn2, metric)
+    if valid is None:
+        return s
+    return torch.where(valid.to(torch.float32)[None, :] > 0, s, NEG_INF)
+
+
+def gathered_scores_ref(queries: torch.Tensor, cand: torch.Tensor,
+                        mask: torch.Tensor, metric: str = "l2"
+                        ) -> torch.Tensor:
+    """Masked [Q, M] scores of ``queries`` [Q, K] against per-query
+    candidates ``cand`` [Q, M, K]; ``mask == 0`` slots score ``NEG_INF``."""
+    q = queries.to(torch.float32)
+    c = cand.to(torch.float32)
+    dot = torch.einsum("qmk,qk->qm", c, q)
+    qn2 = torch.sum(q * q, dim=1, keepdim=True)
+    cn2 = torch.sum(c * c, dim=2)
+    s = _scores_from_parts(dot, qn2, cn2, metric)
+    return torch.where(mask.to(torch.float32) > 0, s, NEG_INF)
+
+
+def masked_topk(scores: torch.Tensor, ids: torch.Tensor | None,
+                k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over the last axis of a masked score matrix.
+
+    Returns ``(ids [Q, k] int32, scores [Q, k] f32)``.  Equal scores keep
+    ascending m, as the reference's stable ``lax.top_k`` does
+    (``torch.topk`` defines no order among equal values, so this sorts
+    stably).  Slots whose score is the mask sentinel get id ``-1``; k > M
+    pads with (``-1``, ``NEG_INF``).  ``ids=None`` means candidate m is
+    database row m.
+    """
+    q, m = scores.shape
+    kk = min(int(k), m)
+    top, pos = torch.sort(scores, dim=1, descending=True, stable=True)
+    top, pos = top[:, :kk], pos[:, :kk]
+    out_ids = pos if ids is None else torch.gather(ids, 1, pos)
+    out_ids = torch.where(top > NEG_INF / 2, out_ids.to(torch.int32), -1)
+    if kk < k:
+        pad_i = torch.full((q, k - kk), -1, dtype=torch.int32,
+                           device=scores.device)
+        pad_s = torch.full((q, k - kk), NEG_INF, dtype=torch.float32,
+                           device=scores.device)
+        out_ids = torch.cat([out_ids, pad_i], dim=1)
+        top = torch.cat([top, pad_s], dim=1)
+    return out_ids.to(torch.int32), top.to(torch.float32)
+
+
+def scored_topk_ref(queries: torch.Tensor, database: torch.Tensor,
+                    valid: torch.Tensor | None, k: int,
+                    metric: str = "l2") -> tuple[torch.Tensor, torch.Tensor]:
+    """``masked_topk(pairwise_scores_ref(...), None, k)``."""
+    return masked_topk(pairwise_scores_ref(queries, database, valid, metric),
+                       None, k)
+
+
+def scored_topk_gathered_ref(queries: torch.Tensor, cand: torch.Tensor,
+                             mask: torch.Tensor, ids: torch.Tensor, k: int,
+                             metric: str = "l2"
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``masked_topk(gathered_scores_ref(...), ids, k)``."""
+    return masked_topk(gathered_scores_ref(queries, cand, mask, metric),
+                       ids, k)
+
+
+__all__ = ["gee_spmm_ref", "row_norm_ref", "gee_spmm_fused_ref", "NEG_INF",
+           "pairwise_scores_ref", "gathered_scores_ref", "masked_topk",
+           "scored_topk_ref", "scored_topk_gathered_ref"]

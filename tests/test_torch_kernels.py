@@ -130,4 +130,5 @@ def test_wrappers_do_not_build_on_import():
 
     assert build.load_library.cache_info().currsize == 0
     assert build.library_path().name.startswith("libgee_kernels_")
-    assert [s.name for s in build.sources()] == ["gee_kernels.cu"]
+    assert [s.name for s in build.sources()] == ["gee_kernels.cu",
+                                                 "topk_kernels.cu"]
