@@ -61,6 +61,8 @@ REPLACES = {
     "scored_topk": "src/repro/kernels/topk_score.py:379",
     "scored_topk_gathered": "src/repro/kernels/topk_score.py:407",
 }
+# the one PyTorch call timed beside a kernel as its yardstick (phase 6)
+LIBRARY = {"row_norm": "F.normalize", "gee_spmm": "torch.sparse.mm"}
 # the retrieval path (phase 8): vertex-id queries, flushes of 64, top 10
 N_QUERIES = 4096
 FLUSH = 64
@@ -204,8 +206,8 @@ def rand_planes(rng, r, d, k, pad_frac=0.3):
 def edge_cases(torch, kernels, refs, errs):
     """Kernel vs plain on small shapes that stress the edges: K=1, K past
     one class tile, all -1 rows, row counts off the block, widths 8 and
-    65,536, empty rowlab, correlation on and off, rows whose squares are
-    denormal."""
+    65,536, empty rowlab, correlation on and off; then ``row_norm``'s own
+    cases (``row_norm_edge_cases``)."""
     gee_spmm, row_norm, gee_spmm_fused = kernels
     gee_spmm_ref, row_norm_ref, gee_spmm_fused_ref = refs
     rng = np.random.default_rng(0)
@@ -231,19 +233,91 @@ def edge_cases(torch, kernels, refs, errs):
                     gee_spmm_fused_ref(y, c, rl, da, k, correlation=cor)))
                 n_cases += 1
         n_cases += 1
-    for n, k in ((13, 1), (300, 3), (257, 200), (1000, 5)):
-        z = rng.standard_normal((n, k)).astype(np.float32)
-        z[rng.random(n) < 0.2] = 0.0               # zero rows stay zero
-        z[1] = 1e-21                       # its squares are denormal floats
-        zt = torch.from_numpy(z).to(dev)
-        got, want = row_norm(zt), row_norm_ref(zt)
-        errs["row_norm"].append(max_err(torch, got, want))
-        # no flushed denormals: flushed, the row's norm would read 0
-        torch.testing.assert_close(got[1], want[1], rtol=RTOL, atol=0.0)
-        if not bool((got[1] != 0).all()):
-            raise AssertionError("row_norm flushed a denormal-norm row")
-        n_cases += 1
+    n_cases += row_norm_edge_cases(torch, row_norm, row_norm_ref,
+                                   gee_spmm_fused, rng, errs)
     return n_cases
+
+
+def row_norm_edge_cases(torch, row_norm, row_norm_ref, gee_spmm_fused, rng,
+                        errs) -> int:
+    """``row_norm`` against its plain version: K on both sides of every
+    lane-segment width (1 to 32 lanes a row) and past one warp (33, 200,
+    1,025); row counts off every rows-per-warp and block multiple, and
+    large enough that the grid strides; zero rows; a row whose squares are
+    denormal (no flushed denormals); integer-valued rows, whose sums are
+    exact, bit for bit.  Where the fused kernel takes K (<= 1,024), its
+    full-warp epilogue run on the same rows (planes of one slot per class,
+    so its contraction is exact) must give the same bits."""
+    dev = DEVICE
+    big = {1: 300_007, 5: 100_003, 32: 20_001}
+    n_cases = 0
+    for k in (1, 2, 3, 4, 5, 7, 8, 9, 16, 17, 31, 32, 33, 200, 1025):
+        for n in (13, 1001, big.get(k)):
+            if n is None:
+                continue
+            for integer in (False, True):
+                if integer:
+                    z = rng.integers(-3, 4, (n, k)).astype(np.float32)
+                else:
+                    z = rng.standard_normal((n, k)).astype(np.float32)
+                z[rng.random(n) < 0.2] = 0.0           # zero rows stay zero
+                if not integer:
+                    z[1] = 1e-21           # its squares are denormal floats
+                zt = torch.from_numpy(z).to(dev)
+                got, want = row_norm(zt), row_norm_ref(zt)
+                errs["row_norm"].append(max_err(torch, got, want))
+                if integer and not torch.equal(got, want):
+                    raise AssertionError(f"row_norm N={n} K={k}: integer-"
+                                         f"valued rows differ from plain")
+                if not integer:
+                    # flushed, the denormal row's norm would read 0
+                    torch.testing.assert_close(got[1], want[1], rtol=RTOL,
+                                               atol=0.0)
+                    if not bool((got[1] != 0).all()):
+                        raise AssertionError("row_norm flushed a "
+                                             "denormal-norm row")
+                if k <= 1024:
+                    ylab = torch.arange(k, dtype=torch.int32, device=dev
+                                        ).expand(n, k).contiguous()
+                    empty_i = torch.zeros(0, dtype=torch.int32, device=dev)
+                    empty_f = torch.zeros(0, dtype=torch.float32, device=dev)
+                    fused = gee_spmm_fused(ylab, zt, empty_i, empty_f, k,
+                                           correlation=True)
+                    if not torch.equal(got, fused):
+                        raise AssertionError(f"row_norm N={n} K={k}: not the "
+                                             f"fused epilogue's bits")
+                n_cases += 1
+    return n_cases
+
+
+def csr_operands(torch, edges, labels, k):
+    """The contraction of a default fit as one cuSPARSE call's operands:
+    A_csr, the CSR of the Laplacian-scaled A + I (the default options'
+    graph), and W, the [N, K] one-hot of the labels scaled by 1 / n_k, so
+    that ``torch.sparse.mm(A_csr, W)`` computes what the staged fit's
+    ``gee_spmm`` launches compute (from CSR, not from ELL planes).  Also
+    returns the port's ``sparse_torch`` embedding without the row norm, to
+    hold the product against."""
+    from repro_torch.core.gee import (GEEOptions, class_weight_inv,
+                                      gee_sparse_torch,
+                                      laplacian_edge_weights)
+    from repro_torch.graph.containers import add_self_loops
+
+    aug = add_self_loops(edges)
+    w = laplacian_edge_weights(aug)
+    e = aug.num_edges
+    a = torch.sparse_coo_tensor(
+        torch.stack([aug.src[:e].long(), aug.dst[:e].long()]), w[:e],
+        (aug.num_nodes, aug.num_nodes)).coalesce().to_sparse_csr()
+    lab = torch.from_numpy(labels).to(edges.device).long()
+    winv = class_weight_inv(lab.int(), k)
+    onehot = torch.zeros((aug.num_nodes, k), dtype=torch.float32,
+                         device=edges.device)
+    rows = torch.nonzero(lab >= 0)[:, 0]
+    onehot[rows, lab[rows]] = winv[lab[rows]]
+    want = gee_sparse_torch(edges, lab.int(), k, GEEOptions(
+        laplacian=True, diag_aug=True, correlation=False))
+    return a, onehot, want
 
 
 # ---------------------------------------------------------------------------
@@ -442,6 +516,101 @@ def topk_edge_cases(torch, ts, ref, errs) -> int:
     return n
 
 
+def gathered_topk_edge_cases(torch, ts, ref, errs) -> tuple:
+    """``scored_topk_gathered`` against its plain version, both metrics:
+    kk in {1, 2, 10, 16, 31, 32}; M < 32; M at a chunk boundary +- 1; one
+    chunk and many; rows entirely masked; K on both sides of the widest
+    K kept in registers (8); and integer-valued inputs whose exact ties
+    straddle lanes, warps and chunks, held bit for bit.  In the ``bar``
+    rows every live score ties, and the first 64 candidates of each chunk
+    (warp 0's first round) score lower, so warp 0's list holds later m
+    when the other warps' lists, of the same score and smaller m, are
+    offered to it: each must displace the list's last entry.  K runs over
+    every width the kernel keeps in registers (1-8) and past it (9, 200).
+    Returns the number of cases and the chunk counts the wrapper chose."""
+    rng = np.random.default_rng(2)
+    dev = DEVICE
+    chunk = ts._GATHER_MIN_CHUNK
+    # (Q, M, K, k, integer-valued, pattern)
+    cases = [(3, 20, 3, 10, False, None), (5, 31, 2, 32, True, None),
+             (2, 1, 1, 1, False, None), (4, chunk - 1, 1, 1, True, None),
+             (4, chunk + 1, 2, 2, True, None),
+             (2, 2 * chunk - 1, 1, 16, True, None),
+             (2, 2 * chunk + 1, 1, 31, True, None),
+             (1, 70001, 1, 32, True, None), (64, 3 * chunk, 2, 16, True, None),
+             (64, 58752, 5, 10, False, None), (7, 3000, 3, 10, False, "rows"),
+             (3, 2 * chunk + 5, 1, 10, True, "bar"),
+             (3, 2 * chunk + 5, 1, 32, True, "bar"),
+             (5, 3001, 4, 10, True, None), (5, 3001, 6, 10, True, None),
+             (5, 3001, 7, 10, True, None), (5, 3001, 8, 10, True, None),
+             (5, 3001, 9, 10, True, None), (3, 300, 200, 10, False, None)]
+    n, chunk_counts = 0, set()
+    for q_, m_, k_dim, k, integer, pattern in cases:
+        if integer:
+            q = rng.integers(-2, 3, (q_, k_dim)).astype(np.float32)
+            cand = rng.integers(-2, 3, (q_, m_, k_dim)).astype(np.float32)
+        else:
+            q = rng.standard_normal((q_, k_dim)).astype(np.float32)
+            cand = rng.standard_normal((q_, m_, k_dim)).astype(np.float32)
+        mask = (rng.random((q_, m_)) < 0.8).astype(np.float32)
+        if pattern == "rows":
+            mask[[0, 3]] = 0.0                     # rows entirely masked
+        elif pattern == "bar":
+            q[:] = 0.0                            # l2: -|x|^2; cosine: 0
+            cand[:] = 0.0
+            mask[:] = 1.0
+            chunk_len = -(-m_ // ts._gathered_chunks(torch.device(dev), q_,
+                                                     m_))
+            for c0 in range(0, m_, chunk_len):
+                cand[:, c0:c0 + 64] = 1.0          # l2 -1, cosine 0
+        ids = np.stack([rng.permutation(10 * m_)[:m_]
+                        for _ in range(q_)]).astype(np.int32)
+        qt, ct, mt, it = (torch.from_numpy(a).to(dev)
+                          for a in (q, cand, mask, ids))
+        chunk_counts.add(ts._gathered_chunks(qt.device, q_, m_))
+        for metric in ("l2", "cosine"):
+            gfull = ref.gathered_scores_ref(qt, ct, mt, metric)
+            before = ts.scored_topk_gathered.launches
+            got = ts.scored_topk_gathered(qt, ct, mt, it, k, metric=metric,
+                                          fused=True)
+            if ts.scored_topk_gathered.launches != before + 1:
+                raise AssertionError(f"M={m_} k={k}: the kernel did not run")
+            errs["scored_topk_gathered"].append(check_topk(
+                torch, got, ref.masked_topk(gfull, it, k), gfull,
+                term_scale(torch, qt, ct, metric), it, exact=integer))
+            n += 1
+    if not (1 in chunk_counts and max(chunk_counts) > 8):
+        raise AssertionError(f"chunk counts {sorted(chunk_counts)} miss one "
+                             f"chunk or many")
+    return n, sorted(chunk_counts)
+
+
+def chunk_sweep(torch, ts, a, kw) -> dict:
+    """``scored_topk_gathered`` on one call's inputs at other chunk counts
+    than its policy's: the time of each, and the same ids and scores (the
+    total order makes the result independent of the chunking).  Also its
+    time at other widths of top-k: k = 1 keeps the lists nearly empty, so
+    it reads the cost of the scan alone."""
+    policy = ts._gathered_chunks
+    chunks = policy(a[0].device, a[0].shape[0], a[1].shape[1])
+    want = ts.scored_topk_gathered(*a, **kw)
+    by_k = {k: gpu_ms(torch, lambda: ts.scored_topk_gathered(
+        *a[:4], k, *a[5:], **kw)) for k in (1, 2, 10, 32)}
+    sweep = {}
+    try:
+        for n in (1, 2, 4, 6, 8, 9, 12, 16, 24, 33, 66):
+            ts._gathered_chunks = lambda *_, n=n: n
+            got = ts.scored_topk_gathered(*a, **kw)
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"scored_topk_gathered at {n} chunks "
+                                     f"differs from {chunks} chunks")
+            sweep[n] = gpu_ms(torch, lambda: ts.scored_topk_gathered(*a, **kw),
+                              reps=10)
+    finally:
+        ts._gathered_chunks = policy
+    return {"chunks": chunks, "chunk_sweep_ms": sweep, "ms_by_k": by_k}
+
+
 def main() -> int:
     import torch
 
@@ -533,10 +702,13 @@ def main() -> int:
                 "scored_topk_gathered": topk_mod.scored_topk_gathered}
     errs.update({name: [] for name in rkernels})
     n_cases = topk_edge_cases(torch, topk_mod, ref_mod, errs)
+    n_gathered, chunk_counts = gathered_topk_edge_cases(torch, topk_mod,
+                                                        ref_mod, errs)
     torch.cuda.synchronize()
     say(f"phase 3c retrieval kernels vs plain, {n_cases} edge cases x "
-        f"(l2, cosine): " + ", ".join(f"{k} {fmt_err(errs[k])}"
-                                     for k in rkernels))
+        f"(l2, cosine) and {n_gathered} more of scored_topk_gathered (chunk "
+        f"counts {chunk_counts}): " + ", ".join(f"{k} {fmt_err(errs[k])}"
+                                              for k in rkernels))
 
     # -- graphs ---------------------------------------------------------------
     t0 = time.perf_counter()
@@ -665,6 +837,13 @@ def main() -> int:
                 import torch.nn.functional as F
                 lib_ms = gpu_ms(torch, lambda: [
                     F.normalize(a[0], dim=1, eps=1e-30) for a, _ in calls])
+            elif name == "gee_spmm":
+                a_csr, w_dense, want = csr_operands(torch, *graphs[g])
+                library_err = max_err(torch, torch.sparse.mm(a_csr, w_dense),
+                                      want)
+                lib_ms = gpu_ms(torch, lambda: torch.sparse.mm(a_csr,
+                                                               w_dense))
+                del a_csr, w_dense, want
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops_ / FP32_OPS_PER_S * 1e3
             tg[name] = {
@@ -675,6 +854,9 @@ def main() -> int:
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "shapes": [list(a[0].shape) for a, _ in calls],
                 "per_launch_ms": per_launch}
+            if name == "gee_spmm":
+                tg[name]["library"] = "torch.sparse.mm(A_csr, W), cuSPARSE"
+                tg[name]["library_err"] = library_err
         edges, labels, k = graphs[g]
         # end to end: warm (packing cached in the PreparedGraph) and cold
         warm = host_ms(torch, lambda: GEEEmbedder(num_classes=k).fit_transform(
@@ -707,7 +889,7 @@ def main() -> int:
                         f"{tg[n]['launches_per_fit']} launches "
                         f"(bound {tg[n]['bound_ms']:.4f}, plain "
                         f"{tg[n]['plain_ms']:.4f}"
-                        + (f", F.normalize {tg[n]['library_ms']:.4f}"
+                        + (f", {LIBRARY[n]} {tg[n]['library_ms']:.4f}"
                            if tg[n]["library_ms"] is not None else "") + ")"
                         for n in kernels)
             + f"; fit_transform warm {warm:.2f} ms (device {warm_dev:.2f} "
@@ -982,6 +1164,7 @@ def main() -> int:
                                                 gathered_scores(a[0], a[1],
                                                 a[2], metric="l2"), a[3],
                                                 a[4]))
+                    entry.update(chunk_sweep(torch, topk_mod, a, kw))
                 tg[f"{name} {shape_name}"] = entry
         # launches per build and per flush, counted
         emb, rows = retrieval_graph(g, 3)
@@ -1007,7 +1190,14 @@ def main() -> int:
             + "; ".join(f"{n} {e['ms']:.4f} ms (bound {e['bound_ms']:.4f} "
                         f"by {e['bound_by']}, plain {e['plain_ms']:.4f}"
                         + (f", staged {e['staged_ms']:.4f}"
-                           if "staged_ms" in e else "") + ")"
+                           if "staged_ms" in e else "")
+                        + (f", {e['chunks']} chunks; ms by chunk count "
+                           + " ".join(f"{c}:{t:.4f}" for c, t in
+                                      e["chunk_sweep_ms"].items())
+                           + "; ms by k " + " ".join(
+                               f"{c}:{t:.4f}" for c, t in
+                               e["ms_by_k"].items())
+                           if "chunk_sweep_ms" in e else "") + ")"
                         for n, e in tg.items()
                         if isinstance(e, dict) and "ms" in e)
             + f"; index build {tg['index_build_ms']:.2f} ms; replay "

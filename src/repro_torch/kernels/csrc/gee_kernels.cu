@@ -13,7 +13,10 @@
 // Bound on the H100 (3.35 TB/s): all three move bytes and do a few operations
 // per byte.  gee_spmm and gee_spmm_fused read 8 B per ELL slot (int32 label,
 // f32 contribution) and write 4*R*K B (the fused kernel also reads 8 B per
-// row of rowlab/dadd); row_norm reads and writes 4*N*K B each.
+// row of rowlab/dadd); row_norm reads and writes 4*N*K B each.  At K = 5 and
+// N = 92,482 that is 3.7 MB, about one microsecond of bytes: row_norm is
+// bound by the latency of its load-reduce-store chains and by launch cost,
+// so its design is about how many chains are in flight (below).
 //
 // Design.  The TPU kernels walk the degree axis as a sequential grid axis and
 // revisit the output block.  Here blocks run unordered, so a row's whole
@@ -34,6 +37,16 @@
 // then combines its lanes with an xor butterfly (every lane ends with the
 // same bits); the group's warps are combined in ascending warp order.
 //
+// row_norm.  For K <= 32 a row is a segment of W lanes, W the power of two
+// >= K, so a warp holds 32 / W contiguous rows and loads them as one span;
+// each row is reduced by an xor butterfly inside its segment.  A grid of a
+// few blocks per SM strides over the row groups and issues the next group's
+// load before it reduces the current one, so every warp keeps two load
+// chains in flight instead of one chain per wave of one-row warps.  K > 32
+// keeps one warp a row (the routine the fused epilogue calls).  The
+// segmented butterfly gives the bits of the full-warp one: in the steps it
+// skips, the full butterfly adds exact zeros (lanes >= K hold 0).
+//
 // Numerics: IEEE sqrtf and division, no rsqrtf, no flushed denormals (the
 // build passes no --use_fast_math): the EPS_NORM = 1e-30 clamp of
 // repro/core/epilogue.py exists for denormal-norm rows.
@@ -52,6 +65,10 @@ constexpr unsigned kFullMask = 0xffffffffu;
 // The fused kernel keeps kBlockWarps rows of K floats in shared memory:
 // 8 * 1024 * 4 B = 32 KiB, inside the 48 KiB a block gets without opting in.
 constexpr int kMaxClasses = 1024;
+// row_norm's grid for K <= 32: at most this many blocks of kBlockThreads an
+// SM, so that all are resident at once (8 * 8 = the SM's 64 warps, at <= 32
+// registers a thread).
+constexpr int kRowNormBlocksPerSm = 8;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -59,9 +76,10 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The one row-norm routine of the port, shared by row_norm and the fused
-// epilogue: norm = sqrt(sum_k z_k^2); rows with norm 0 stay exactly 0, the
-// others are divided by max(norm, eps).  One full warp per row.
+// The full-warp row norm of the fused epilogue and of row_norm at K > 32:
+// norm = sqrt(sum_k z_k^2); rows with norm 0 stay exactly 0, the others are
+// divided by max(norm, eps).  One full warp per row.  row_norm_seg_kernel
+// computes the same bits for K <= 32 with W lanes a row.
 __device__ __forceinline__ void row_l2_normalize_warp(const float* row, float* out,
                                                       int K, float eps, int lane) {
   float ss = 0.f;
@@ -184,6 +202,7 @@ gee_spmm_fused_kernel(const int* __restrict__ ylab, const float* __restrict__ co
   }
 }
 
+// K > 32: one warp a row.
 __global__ void __launch_bounds__(kBlockThreads)
 row_norm_kernel(const float* __restrict__ z, float* __restrict__ out, int64_t N, int K,
                 float eps) {
@@ -191,6 +210,39 @@ row_norm_kernel(const float* __restrict__ z, float* __restrict__ out, int64_t N,
   const int64_t r = static_cast<int64_t>(blockIdx.x) * kBlockWarps + warp;
   if (r >= N) return;  // whole warps leave together
   row_l2_normalize_warp(z + r * K, out + r * K, K, eps, lane);
+}
+
+// K <= W <= 32: a warp holds kWarp / W rows, W lanes a row; the grid strides
+// over groups of kWarp / W rows, one group a warp at a time.
+template <int W>
+__global__ void __launch_bounds__(kBlockThreads)
+row_norm_seg_kernel(const float* __restrict__ z, float* __restrict__ out, int64_t N,
+                    int K, float eps) {
+  constexpr int kRows = kWarp / W;
+  const int lane = threadIdx.x % kWarp;
+  const int c = lane % W;
+  const int64_t groups = (N + kRows - 1) / kRows;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kBlockWarps;
+  int64_t g = static_cast<int64_t>(blockIdx.x) * kBlockWarps + threadIdx.x / kWarp;
+  // the element this lane owns in group gg: its offset, or -1 past the data
+  auto slot = [&](int64_t gg) -> int64_t {
+    const int64_t r = gg * kRows + lane / W;
+    return gg < groups && r < N && c < K ? r * K + c : -1;
+  };
+  int64_t at = slot(g);
+  float v = at >= 0 ? __ldg(z + at) : 0.f;
+  for (; g < groups; g += stride) {  // g is the same on every lane of a warp
+    const int64_t at_next = slot(g + stride);
+    const float v_next = at_next >= 0 ? __ldg(z + at_next) : 0.f;
+    float ss = fmaf(v, v, 0.f);
+#pragma unroll
+    for (int o = W / 2; o > 0; o >>= 1) ss += __shfl_xor_sync(kFullMask, ss, o, W);
+    const float norm = sqrtf(ss);
+    const float denom = fmaxf(norm, eps);
+    if (at >= 0) out[at] = norm > 0.f ? v / denom : 0.f;
+    at = at_next;
+    v = v_next;
+  }
 }
 
 // Warps per row: one below 2,048 slots, then doubling with the width up to
@@ -291,10 +343,35 @@ int gee_spmm_fused_launch(const void* ylab, const void* contrib, const void* row
 
 int row_norm_launch(const void* z, void* out, int64_t N, int K, float eps, void* stream) {
   if (K < 1) return cudaErrorInvalidValue;
+  const float* zf = static_cast<const float*>(z);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (K > kWarp) {
+    unsigned blocks;
+    if (!grid_for(N, kBlockWarps, &blocks)) return cudaErrorInvalidConfiguration;
+    row_norm_kernel<<<blocks, kBlockThreads, 0, s>>>(zf, o, N, K, eps);
+    return static_cast<int>(cudaGetLastError());
+  }
+  int w = 1;
+  while (w < K) w *= 2;
+  const int64_t groups = (N + kWarp / w - 1) / (kWarp / w);
   unsigned blocks;
-  if (!grid_for(N, kBlockWarps, &blocks)) return cudaErrorInvalidConfiguration;
-  row_norm_kernel<<<blocks, kBlockThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(z), static_cast<float*>(out), N, K, eps);
+  if (!grid_for(groups, kBlockWarps, &blocks)) return cudaErrorInvalidConfiguration;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // no more blocks than are resident at once: past that, warps stride
+  const unsigned most = static_cast<unsigned>(sms) * kRowNormBlocksPerSm;
+  if (blocks > most) blocks = most;
+  switch (w) {
+    case 1: row_norm_seg_kernel<1><<<blocks, kBlockThreads, 0, s>>>(zf, o, N, K, eps); break;
+    case 2: row_norm_seg_kernel<2><<<blocks, kBlockThreads, 0, s>>>(zf, o, N, K, eps); break;
+    case 4: row_norm_seg_kernel<4><<<blocks, kBlockThreads, 0, s>>>(zf, o, N, K, eps); break;
+    case 8: row_norm_seg_kernel<8><<<blocks, kBlockThreads, 0, s>>>(zf, o, N, K, eps); break;
+    case 16: row_norm_seg_kernel<16><<<blocks, kBlockThreads, 0, s>>>(zf, o, N, K, eps); break;
+    default: row_norm_seg_kernel<32><<<blocks, kBlockThreads, 0, s>>>(zf, o, N, K, eps); break;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

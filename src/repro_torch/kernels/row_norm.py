@@ -2,13 +2,17 @@
 of ``repro/kernels/row_norm.py``).
 
 Replaces the TPU kernel ``src/repro/kernels/row_norm.py::_row_norm_kernel``
-with the CUDA kernel ``row_norm_kernel`` in ``csrc/gee_kernels.cu``.  Rows
-with norm 0 stay exactly 0; the others are divided by ``max(norm, eps)``.
+with the CUDA kernels ``row_norm_seg_kernel`` (K <= 32) and
+``row_norm_kernel`` (K > 32) in ``csrc/gee_kernels.cu``.  Rows with norm 0
+stay exactly 0; the others are divided by ``max(norm, eps)``.
 
-Bound on the H100: bytes.  It reads and writes 4*N*K B each (8*N*K B) at
-3.35 TB/s.  One warp normalizes one row in a single pass over it; the
-arithmetic is the ``__device__`` routine the fused kernel's epilogue uses
-too, so the port has one source of these numerics on the card.
+Bound on the H100: bytes, 4*N*K B read and as many written, at 3.35 TB/s;
+at GEE's K of a few classes that is microseconds, so the kernel is built to
+keep many rows in flight: for K <= 32 a row takes the next power of two
+>= K lanes, a warp holds several contiguous rows, and a resident grid
+strides over them with the next rows' load issued before the current
+reduction.  Its sums give the bits of the full-warp routine that the fused
+kernel's epilogue (and K > 32) uses.
 """
 
 from __future__ import annotations

@@ -19,7 +19,9 @@ them id −1.
 
 Bound on the H100: bytes (K is a handful of classes).  The top-k kernels
 rank by score, then by candidate position, so any merge order reproduces
-the reference's stable tie order; see the source for the two-pass design.
+the reference's stable tie order; see the source for the two-pass designs
+(``scored_topk_gathered`` keeps its lists in a warp's registers,
+``scored_topk`` in each thread's local memory).
 
 A CPU tensor takes the plain version (``repro_torch.kernels.ref``); a CUDA
 tensor launches the kernel or raises.  The one other route is open and
@@ -47,15 +49,22 @@ METRICS = ("l2", "cosine")
 _METRIC_CODE = {"l2": 0, "cosine": 1}
 
 # The widest top-k the fused kernels keep (``kMaxTopK`` in
-# csrc/topk_kernels.cu): each of a block's 128 threads holds a private list
-# of up to 32 (score, position) pairs, and the block merges them in 32 KiB
-# of shared memory.
+# csrc/topk_kernels.cu): ``scored_topk`` holds a private list of up to 32
+# (score, position) pairs a thread, ``scored_topk_gathered`` one entry a
+# lane of a warp.
 MAX_TOPK = 32
 # The top-k kernels split M into chunks so that a 64-query flush still
-# fills the card: about this many blocks per SM, and never fewer than this
-# many candidates a block.
+# fills the card.  ``scored_topk``: about so many blocks of 128 threads per
+# SM, and never fewer than so many candidates a block.
 _BLOCKS_PER_SM = 8
 _MIN_CHUNK = 1024
+# ``scored_topk_gathered``: pass-1 blocks of 8 warps (``kGatherWarps``),
+# each warp scoring 64 candidates a round; no more blocks than the SMs hold
+# at once (``kGatherBlocksPerSm``, which the kernel's launch bounds
+# guarantee), so none waits for a second wave, and chunks of at least 2,048
+# candidates.
+_GATHER_BLOCKS_PER_SM = 4
+_GATHER_MIN_CHUNK = 2048
 
 
 def _check_metric(metric: str) -> None:
@@ -126,10 +135,18 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _num_chunks(device: torch.device, q: int, m: int) -> int:
-    """How many chunks the top-k kernels split each query's M into."""
+    """How many chunks ``scored_topk`` splits each query's M into."""
     want = -(-_BLOCKS_PER_SM * _sm_count(device) // q)
     most = -(-m // _MIN_CHUNK)
     return max(1, min(want, most))
+
+
+def _gathered_chunks(device: torch.device, q: int, m: int) -> int:
+    """How many chunks ``scored_topk_gathered`` splits each query's M into:
+    at most ``_GATHER_BLOCKS_PER_SM`` blocks an SM in all, none shorter than
+    ``_GATHER_MIN_CHUNK`` candidates (but always one)."""
+    fit = _GATHER_BLOCKS_PER_SM * _sm_count(device) // q
+    return max(1, min(fit, -(-m // _GATHER_MIN_CHUNK)))
 
 
 # ---------------------------------------------------------------------------
@@ -202,10 +219,10 @@ def _empty_topk(q: int, k: int, device) -> tuple[torch.Tensor, torch.Tensor]:
             torch.full((q, k), NEG_INF, dtype=torch.float32, device=device))
 
 
-def _topk_outputs(q: int, m: int, k: int, device):
-    """(out_ids, out_scores, part_s, part_m, chunks) for a top-k launch; the
-    partial lists are scratch for the chunks' merge (absent at 1 chunk)."""
-    chunks = _num_chunks(device, q, m)
+def _topk_outputs(q: int, m: int, k: int, device, chunks: int):
+    """(out_ids, out_scores, part_s, part_m) for a top-k launch in
+    ``chunks`` chunks; the partial lists are scratch for the chunks' merge
+    (absent at 1 chunk)."""
     kk = min(k, m)
     out_ids, out_s = (torch.empty((q, k), dtype=dt, device=device)
                       for dt in (torch.int32, torch.float32))
@@ -215,7 +232,7 @@ def _topk_outputs(q: int, m: int, k: int, device):
                              device=device)
         part_m = torch.empty((q, chunks, kk), dtype=torch.int32,
                              device=device)
-    return out_ids, out_s, part_s, part_m, chunks
+    return out_ids, out_s, part_s, part_m
 
 
 def _ptr(t: torch.Tensor | None):
@@ -245,8 +262,9 @@ def scored_topk(queries: torch.Tensor, database: torch.Tensor,
         return scored_topk_ref(queries, database, valid, k, metric)
     if q == 0 or m == 0:
         return _empty_topk(q, k, queries.device)
-    out_ids, out_s, part_s, part_m, chunks = _topk_outputs(
-        q, m, k, queries.device)
+    chunks = _num_chunks(queries.device, q, m)
+    out_ids, out_s, part_s, part_m = _topk_outputs(q, m, k, queries.device,
+                                                   chunks)
     lib = load_library()
     rc = lib.scored_topk_launch(
         queries.data_ptr(), database.data_ptr(), _ptr(valid), _ptr(part_s),
@@ -284,8 +302,9 @@ def scored_topk_gathered(queries: torch.Tensor, cand: torch.Tensor,
         return scored_topk_gathered_ref(queries, cand, mask, ids, k, metric)
     if q == 0 or m == 0:
         return _empty_topk(q, k, queries.device)
-    out_ids, out_s, part_s, part_m, chunks = _topk_outputs(
-        q, m, k, queries.device)
+    chunks = _gathered_chunks(queries.device, q, m)
+    out_ids, out_s, part_s, part_m = _topk_outputs(q, m, k, queries.device,
+                                                   chunks)
     lib = load_library()
     rc = lib.scored_topk_gathered_launch(
         cand.data_ptr(), queries.data_ptr(), mask.data_ptr(), ids.data_ptr(),

@@ -50,7 +50,8 @@ def test_gee_spmm_plain_matches_pallas(n, d, k):
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize("n,k", [(1, 1), (5, 3), (100, 7), (513, 200)])
+@pytest.mark.parametrize("n,k", [(1, 1), (5, 3), (100, 7), (70, 32),
+                                 (70, 33), (513, 200)])
 def test_row_norm_plain_matches_pallas(n, k):
     rng = np.random.default_rng(n + k)
     z = rng.standard_normal((n, k)).astype(np.float32)

@@ -280,9 +280,43 @@ def test_build_compiles_every_source_and_caps_agree():
     assert "-shared" not in build.NVCC_FLAGS     # compile with -c, then link
 
 
+def test_gathered_chunk_policy_and_shared_memory(monkeypatch):
+    """``scored_topk_gathered`` splits a flush's M into chunks by its own
+    policy (at most ``_GATHER_BLOCKS_PER_SM`` blocks an SM in all, chunks
+    of at least ``_GATHER_MIN_CHUNK`` candidates, one chunk below that),
+    while ``scored_topk`` keeps its policy; and the gathered pass-1 block's
+    dynamic shared memory, one (score, position) entry per warp and list
+    slot, stays within the 48 KiB a block gets without opting in, at the
+    widest top-k."""
+    monkeypatch.setattr(ts, "_sm_count", lambda device: 132)
+    dev = torch.device("cuda")               # only the SM count is read
+    # the flush shapes of chip_smoke.py: 64 queries of 58,752 (10,240)
+    assert ts._gathered_chunks(dev, 64, 58752) == 8
+    assert ts._gathered_chunks(dev, 64, 10240) == 5
+    assert ts._gathered_chunks(dev, 64, ts._GATHER_MIN_CHUNK) == 1
+    assert ts._gathered_chunks(dev, 64, ts._GATHER_MIN_CHUNK + 1) == 2
+    assert ts._gathered_chunks(dev, 1, 70001) == 35
+    assert ts._gathered_chunks(dev, 4096, 10 ** 6) == 1
+    for q, m in ((64, 58752), (64, 10240), (1, 70001), (7, 3000)):
+        chunks = ts._gathered_chunks(dev, q, m)
+        # one wave of blocks, no chunk left empty
+        assert q * chunks <= ts._GATHER_BLOCKS_PER_SM * 132
+        assert (chunks - 1) * -(-m // chunks) < m
+    assert ts._num_chunks(dev, 64, 92482) == 17      # scored_topk's policy
+    src = (build.CSRC / "topk_kernels.cu").read_text()
+    warps = int(re.search(r"constexpr int kGatherWarps = (\d+);",
+                          src).group(1))
+    resident = re.search(r"constexpr int kGatherBlocksPerSm = (\d+);", src)
+    assert int(resident.group(1)) == ts._GATHER_BLOCKS_PER_SM
+    assert "__launch_bounds__(kGatherWarps * kWarp, kGatherBlocksPerSm)" in src
+    assert "(sizeof(float) + sizeof(int)) * kGatherWarps * kk" in src
+    assert 8 * warps * ts.MAX_TOPK <= 48 * 1024
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric", METRICS)
-def test_kernels_on_card(metric):
+@pytest.mark.parametrize("k", [1, 10, 32])
+def test_kernels_on_card(metric, k):
     """The four kernels against their plain versions on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
@@ -294,9 +328,9 @@ def test_kernels_on_card(metric):
              ref.pairwise_scores_ref(q_t, x_t, v_t, metric)),
             (ts.gathered_scores(q_t, c_t, m_t, metric=metric),
              ref.gathered_scores_ref(q_t, c_t, m_t, metric)),
-            (ts.scored_topk(q_t, x_t, v_t, 10, metric=metric, fused=True),
-             ref.scored_topk_ref(q_t, x_t, v_t, 10, metric)),
-            (ts.scored_topk_gathered(q_t, c_t, m_t, i_t, 10, metric=metric,
+            (ts.scored_topk(q_t, x_t, v_t, k, metric=metric, fused=True),
+             ref.scored_topk_ref(q_t, x_t, v_t, k, metric)),
+            (ts.scored_topk_gathered(q_t, c_t, m_t, i_t, k, metric=metric,
                                      fused=True),
-             ref.scored_topk_gathered_ref(q_t, c_t, m_t, i_t, 10, metric))):
+             ref.scored_topk_gathered_ref(q_t, c_t, m_t, i_t, k, metric))):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
