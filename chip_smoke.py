@@ -19,7 +19,11 @@ paths on the paper's 10k-node SBM and on the ``cl-100k-1d8-l5`` stand-in
   full probe held equal to brute force and fused to staged.
 
 Each path runs with every kernel's launch count set to 0 just before it and
-read just after.  Every kernel is timed with CUDA events beside its bound.
+read just after.  Every kernel is timed with CUDA events beside its bound;
+``pairwise_scores`` at its three shapes (index build, a flush's probe, the
+staged brute force) with the kernels one call launches, both top-k
+kernels at other chunk counts and widths of top-k, and the device time of a
+fused flush.
 The line before the last lists the seven kernels; the last line of standard
 output is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before those lines.  Details go to ``chiprun_out/chip_smoke.json``.
@@ -585,30 +589,175 @@ def gathered_topk_edge_cases(torch, ts, ref, errs) -> tuple:
     return n, sorted(chunk_counts)
 
 
-def chunk_sweep(torch, ts, a, kw) -> dict:
-    """``scored_topk_gathered`` on one call's inputs at other chunk counts
-    than its policy's: the time of each, and the same ids and scores (the
-    total order makes the result independent of the chunking).  Also its
-    time at other widths of top-k: k = 1 keeps the lists nearly empty, so
-    it reads the cost of the scan alone."""
-    policy = ts._gathered_chunks
-    chunks = policy(a[0].device, a[0].shape[0], a[1].shape[1])
-    want = ts.scored_topk_gathered(*a, **kw)
-    by_k = {k: gpu_ms(torch, lambda: ts.scored_topk_gathered(
-        *a[:4], k, *a[5:], **kw)) for k in (1, 2, 10, 32)}
+def scored_topk_edge_cases(torch, ts, ref, errs) -> tuple:
+    """``scored_topk`` against its plain version, both metrics: kk in {1, 2,
+    10, 16, 31, 32}; M < 32 and M at a chunk boundary +- 1; Q in {1, QT - 1,
+    QT + 1, 64, 65} (QT: the query tile); one chunk to the most; an
+    all-invalid database; valid absent, f32, bool and uint8; K over every
+    width the kernel keeps in registers (1-8) and past it (9, 200); and
+    integer-valued inputs whose exact ties straddle lanes, warps, query
+    tiles and chunks, held bit for bit.  In the ``bar`` rows every live
+    score ties except the first 64 candidates of each chunk (warp 0's first
+    round), which score lower, so warp 0's list holds later m than the
+    other warps' lists of the same score.  Returns the number of cases and
+    the chunk counts the wrapper chose."""
+    rng = np.random.default_rng(3)
+    dev = DEVICE
+    qt, chunk = ts._QUERY_TILE, ts._MIN_CHUNK
+    # (Q, M, K, k, integer-valued, pattern)
+    cases = [(1, 1, 1, 1, True, None), (qt - 1, 20, 3, 10, False, None),
+             (qt + 1, 31, 2, 32, True, None), (3, chunk - 1, 1, 1, True, None),
+             (5, chunk + 1, 2, 2, True, None),
+             (qt + 1, 2 * chunk - 1, 1, 16, True, None),
+             (qt - 1, 2 * chunk + 1, 1, 31, True, None),
+             (1, 92482, 1, 32, True, None), (64, 92482, 5, 10, False, None),
+             (64, 92482, 5, 10, True, None), (65, 10000, 3, 10, False, None),
+             (64, 3 * chunk, 2, 16, True, None),
+             (7, 3000, 3, 10, False, "invalid"),
+             (qt + 1, 2 * chunk + 5, 1, 10, True, "bar"),
+             (65, 5000, 1, 32, True, "bar"),
+             (5, 3001, 4, 10, True, None), (5, 3001, 6, 10, True, None),
+             (5, 3001, 7, 10, True, None), (5, 3001, 8, 10, True, None),
+             (5, 3001, 9, 10, True, None), (3, 300, 200, 10, False, None)]
+    n, chunk_counts = 0, set()
+    for case, (q_, m_, k_dim, k, integer, pattern) in enumerate(cases):
+        if integer:
+            q = rng.integers(-2, 3, (q_, k_dim)).astype(np.float32)
+            x = rng.integers(-2, 3, (m_, k_dim)).astype(np.float32)
+        else:
+            q = rng.standard_normal((q_, k_dim)).astype(np.float32)
+            x = rng.standard_normal((m_, k_dim)).astype(np.float32)
+        valid = (rng.random(m_) < 0.8).astype(np.float32)
+        chunks = ts._num_chunks(torch.device(dev), q_, m_)
+        chunk_counts.add(chunks)
+        if pattern == "invalid":
+            valid[:] = 0.0
+        elif pattern == "bar":
+            q[:] = 0.0                            # l2: -|x|^2; cosine: 0
+            x[:] = 0.0
+            valid[:] = 1.0
+            for c0 in range(0, m_, -(-m_ // chunks)):
+                x[c0:c0 + 64] = 1.0                # l2 -1, cosine 0
+        qt_, xt = torch.from_numpy(q).to(dev), torch.from_numpy(x).to(dev)
+        vt = torch.from_numpy(valid).to(dev)
+        vt = (None, vt, vt > 0, (vt > 0).to(torch.uint8))[case % 4]
+        if pattern == "invalid" and vt is None:
+            vt = torch.zeros(m_, dtype=torch.bool, device=dev)
+        for metric in ("l2", "cosine"):
+            full = ref.pairwise_scores_ref(qt_, xt, vt, metric)
+            before = ts.scored_topk.launches
+            got = ts.scored_topk(qt_, xt, vt, k, metric=metric, fused=True)
+            if ts.scored_topk.launches != before + 1:
+                raise AssertionError(f"Q={q_} M={m_} k={k}: the kernel did "
+                                     f"not run")
+            errs["scored_topk"].append(check_topk(
+                torch, got, ref.masked_topk(full, None, k), full,
+                term_scale(torch, qt_, xt, metric), exact=integer))
+            n += 1
+    if not (1 in chunk_counts and max(chunk_counts) > 32):
+        raise AssertionError(f"chunk counts {sorted(chunk_counts)} miss one "
+                             f"chunk or many")
+    return n, sorted(chunk_counts)
+
+
+def pairwise_edge_cases(torch, ts, ref, errs) -> int:
+    """``pairwise_scores`` against its plain version, both metrics: M from 1
+    to 10 (the index's centroids, the few-row path) and past it (33, 1,000);
+    Q on both sides of the kernels' blocks of query rows (128) and query
+    tiles (8); K 1-9 and 200; valid absent, f32, bool and uint8, all zero
+    too.  Integer-valued inputs bit for bit, the others within the
+    tolerance; the three valid dtypes give the same bits."""
+    rng = np.random.default_rng(4)
+    dev = DEVICE
+    n = 0
+    shapes = [(1, 1), (127, 10), (129, 5), (9, 2), (64, 7), (8, 33),
+              (9, 1000)]
+    for k_dim in (1, 2, 3, 4, 5, 6, 7, 8, 9, 200):
+        for (q_, m_), integer in zip(shapes * 2,
+                                     [True] * len(shapes)
+                                     + [False] * len(shapes)):
+            gen = ((lambda s: rng.integers(-2, 3, s)) if integer else
+                   rng.standard_normal)
+            qt_ = torch.from_numpy(gen((q_, k_dim)).astype(np.float32)).to(dev)
+            xt = torch.from_numpy(gen((m_, k_dim)).astype(np.float32)).to(dev)
+            live = 0.0 if (q_, m_) == (9, 2) else 0.7
+            vf = torch.from_numpy((rng.random(m_) < live).astype(
+                np.float32)).to(dev)
+            for metric in ("l2", "cosine"):
+                sc = term_scale(torch, qt_, xt, metric)
+                outs = []
+                for v in (None, vf, vf > 0, (vf > 0).to(torch.uint8)):
+                    got = ts.pairwise_scores(qt_, xt, v, metric=metric)
+                    want = ref.pairwise_scores_ref(qt_, xt, v, metric)
+                    errs["pairwise_scores"].append(score_err(torch, got, want,
+                                                             sc))
+                    if integer and not torch.equal(got, want):
+                        raise AssertionError(f"pairwise_scores Q={q_} M={m_} "
+                                             f"K={k_dim}: integer-valued "
+                                             f"inputs differ from plain")
+                    outs.append(got)
+                    n += 1
+                if not (torch.equal(outs[1], outs[2])
+                        and torch.equal(outs[1], outs[3])):
+                    raise AssertionError(f"pairwise_scores Q={q_} M={m_}: "
+                                         f"bool, uint8 and f32 valid differ")
+    return n
+
+def chunk_sweep(torch, ts, name, a, kw) -> dict:
+    """A top-k kernel (``scored_topk`` or ``scored_topk_gathered``) on one
+    call's inputs at other chunk counts than its policy's: the time of
+    each, and the same ids and scores (the total order makes the result
+    independent of the chunking).  Also its time at other widths of top-k:
+    k = 1 keeps the lists nearly empty, so it reads the cost of the scan
+    alone."""
+    fn = getattr(ts, name)
+    policy_name, counts, kpos = {
+        "scored_topk": ("_num_chunks", (1, 4, 8, 12, 16, 24, 32, 48), 3),
+        "scored_topk_gathered": ("_gathered_chunks",
+                                 (1, 2, 4, 6, 8, 9, 12, 16, 24, 33, 66), 4),
+    }[name]
+    policy = getattr(ts, policy_name)
+    chunks = policy(a[0].device, a[0].shape[0], a[1].shape[-2])
+    want = fn(*a, **kw)
+    by_k = {k: gpu_ms(torch, lambda: fn(*a[:kpos], k, *a[kpos + 1:], **kw))
+            for k in (1, 2, 10, 32)}
     sweep = {}
     try:
-        for n in (1, 2, 4, 6, 8, 9, 12, 16, 24, 33, 66):
-            ts._gathered_chunks = lambda *_, n=n: n
-            got = ts.scored_topk_gathered(*a, **kw)
+        for n in counts:
+            setattr(ts, policy_name, lambda *_, n=n: n)
+            got = fn(*a, **kw)
             if not all(torch.equal(x, y) for x, y in zip(got, want)):
-                raise AssertionError(f"scored_topk_gathered at {n} chunks "
-                                     f"differs from {chunks} chunks")
-            sweep[n] = gpu_ms(torch, lambda: ts.scored_topk_gathered(*a, **kw),
-                              reps=10)
+                raise AssertionError(f"{name} at {n} chunks differs from "
+                                     f"{chunks} chunks")
+            sweep[n] = gpu_ms(torch, lambda: fn(*a, **kw), reps=10)
     finally:
-        ts._gathered_chunks = policy
+        setattr(ts, policy_name, policy)
     return {"chunks": chunks, "chunk_sweep_ms": sweep, "ms_by_k": by_k}
+
+
+def kernels_per_call(torch, fn, calls: int = 4, tries: int = 5) -> tuple:
+    """How many device kernels one call of ``fn`` launches, as
+    ``torch.profiler`` records them over ``calls`` calls (after a warm-up
+    call), the kernels' names, and the sessions it took.  Now and then a
+    session records no device activity, or loses some of it (4 calls of a
+    one-kernel function recorded 3 kernels): a session whose kernels are
+    not a whole number a call is repeated, up to ``tries`` sessions."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for session in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names and len(names) % calls == 0:
+            return len(names) / calls, sorted(set(names)), session
+    raise AssertionError(f"the profiler recorded no whole number of kernels "
+                         f"a call in {tries} sessions")
 
 
 def main() -> int:
@@ -704,11 +853,15 @@ def main() -> int:
     n_cases = topk_edge_cases(torch, topk_mod, ref_mod, errs)
     n_gathered, chunk_counts = gathered_topk_edge_cases(torch, topk_mod,
                                                         ref_mod, errs)
+    n_scored, scored_counts = scored_topk_edge_cases(torch, topk_mod,
+                                                     ref_mod, errs)
+    n_pairwise = pairwise_edge_cases(torch, topk_mod, ref_mod, errs)
     torch.cuda.synchronize()
     say(f"phase 3c retrieval kernels vs plain, {n_cases} edge cases x "
-        f"(l2, cosine) and {n_gathered} more of scored_topk_gathered (chunk "
-        f"counts {chunk_counts}): " + ", ".join(f"{k} {fmt_err(errs[k])}"
-                                              for k in rkernels))
+        f"(l2, cosine), {n_gathered} more of scored_topk_gathered (chunk "
+        f"counts {chunk_counts}), {n_scored} of scored_topk (chunk counts "
+        f"{scored_counts}) and {n_pairwise} of pairwise_scores: "
+        + ", ".join(f"{k} {fmt_err(errs[k])}" for k in rkernels))
 
     # -- graphs ---------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1115,8 +1268,8 @@ def main() -> int:
         if name in ("pairwise_scores", "scored_topk"):
             m = a[1].shape[0]
             valid = a[2] if len(a) > 2 else kw.get("valid")
-            nbytes = 4 * (nq * kd + m * kd
-                          + (m if valid is not None else 0))
+            nbytes = 4 * (nq * kd + m * kd) + (
+                0 if valid is None else valid.element_size() * m)
             live = nq * m
         else:
             m = a[1].shape[1]
@@ -1130,14 +1283,19 @@ def main() -> int:
             nbytes += 8 * nq * (a[3] if name == "scored_topk" else a[4])
         return nbytes, live * (6 * kd + 4)
 
-    rtiming = {}
+    # the floor of a launch timed this way: one launch of an empty kernel
+    rtiming = {"empty_launch_ms": gpu_ms(torch, lambda: torch.cuda._sleep(0))}
     for g in graphs:
         cap = rcaptured[(g, "l2")]
         tg = {}
+        brute = cap["scored_topk"][0][0]
         for name, calls in cap.items():
-            picks = {"pairwise_scores": {"build": calls[0],
-                                         "probe": calls[1]}}.get(
-                name, {"flush": calls[0]})
+            # pairwise_scores: the index build, a flush's probe, and the
+            # score pass of the staged brute force
+            picks = {"pairwise_scores": {
+                "build": calls[0], "probe": calls[1],
+                "staged": (brute[:3], {"metric": "l2"})}}.get(
+                    name, {"flush": calls[0]})
             for shape_name, (a, kw) in picks.items():
                 nbytes, nops = work(name, a, kw)
                 bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1152,7 +1310,21 @@ def main() -> int:
                     "bound_ms": max(bytes_ms, ops_ms),
                     "bound_by": "bytes" if bytes_ms >= ops_ms
                     else "operations"}
+                if name == "pairwise_scores":
+                    # one call launches exactly one kernel: no cast of the
+                    # index's bool mask, no copy
+                    (entry["kernels_per_call"], entry["kernel_names"],
+                     entry["profiler_sessions"]) = kernels_per_call(
+                        torch, lambda: rkernels[name](*a, **kw))
+                    if (entry["kernels_per_call"] != 1
+                            or not all("pairwise_" in k
+                                       for k in entry["kernel_names"])):
+                        raise AssertionError(
+                            f"pairwise_scores {shape_name}: one call "
+                            f"launched {entry['kernels_per_call']} kernels "
+                            f"({entry['kernel_names']})")
                 if name == "scored_topk":
+                    entry.update(chunk_sweep(torch, topk_mod, name, a, kw))
                     entry["staged_ms"] = gpu_ms(torch, lambda: topk_mod.
                                                 masked_topk(topk_mod.
                                                 pairwise_scores(a[0], a[1],
@@ -1164,7 +1336,7 @@ def main() -> int:
                                                 gathered_scores(a[0], a[1],
                                                 a[2], metric="l2"), a[3],
                                                 a[4]))
-                    entry.update(chunk_sweep(torch, topk_mod, a, kw))
+                    entry.update(chunk_sweep(torch, topk_mod, name, a, kw))
                 tg[f"{name} {shape_name}"] = entry
         # launches per build and per flush, counted
         emb, rows = retrieval_graph(g, 3)
@@ -1184,6 +1356,12 @@ def main() -> int:
         tg["launches"] = counted
         tg["index_build_ms"] = host_ms(
             torch, lambda: emb.build_index(metric="l2"), reps=5)
+        # a fused flush's device work (probe, cell sort, gather, top-k):
+        # the part of its p50 that the host's clock does not blur
+        zq = index.z[torch.from_numpy(rows[:FLUSH]).to(DEVICE)]
+        with fused_env("1"):
+            tg["flush_device_ms"] = gpu_ms(torch,
+                                           lambda: index.search(zq, TOP_K))
         rtiming[g] = tg
         r = retrieval[f"{g} l2"]
         say(f"phase 9 retrieval timing {g} (l2, {card}): "
@@ -1191,6 +1369,8 @@ def main() -> int:
                         f"by {e['bound_by']}, plain {e['plain_ms']:.4f}"
                         + (f", staged {e['staged_ms']:.4f}"
                            if "staged_ms" in e else "")
+                        + (f", {e['kernels_per_call']:g} kernel a call"
+                           if "kernels_per_call" in e else "")
                         + (f", {e['chunks']} chunks; ms by chunk count "
                            + " ".join(f"{c}:{t:.4f}" for c, t in
                                       e["chunk_sweep_ms"].items())
@@ -1200,10 +1380,12 @@ def main() -> int:
                            if "chunk_sweep_ms" in e else "") + ")"
                         for n, e in tg.items()
                         if isinstance(e, dict) and "ms" in e)
+            + f"; an empty launch {rtiming['empty_launch_ms']:.4f} ms"
             + f"; index build {tg['index_build_ms']:.2f} ms; replay "
               f"{r['qps_fused']:,.0f} QPS fused ({r['qps_staged']:,.0f} "
               f"staged), flush p50 {r['flush_ms_p50']:.3f} ms p95 "
-              f"{r['flush_ms_p95']:.3f} ms; launches {counted}")
+              f"{r['flush_ms_p95']:.3f} ms, device time of a fused flush "
+              f"{tg['flush_device_ms']:.4f} ms; launches {counted}")
     report["retrieval_timing"] = rtiming
 
     # -- phase 7: the kernels line -------------------------------------------

@@ -48,19 +48,20 @@ _SIGNATURES = {
     "row_norm_launch": ([_P, _P, ctypes.c_int64, ctypes.c_int,
                          ctypes.c_float, _P], ctypes.c_int),
     "topk_kernels_max_topk": ([], ctypes.c_int),
-    # q, x, valid, out, Q, M, K, metric, stream
-    "pairwise_scores_launch": ([_P, _P, _P, _P, ctypes.c_int64,
-                                ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                                _P], ctypes.c_int),
+    # q, x, valid, valid_bytes, out, Q, M, K, metric, stream
+    "pairwise_scores_launch": ([_P, _P, _P, ctypes.c_int, _P,
+                                ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                                ctypes.c_int, _P], ctypes.c_int),
     # cand, q, mask, out, Q, M, K, metric, stream
     "gathered_scores_launch": ([_P, _P, _P, _P, ctypes.c_int64,
                                 ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                 _P], ctypes.c_int),
-    # q, x, valid, part_s, part_m, out_s, out_ids, Q, M, K, metric, k,
-    # chunks, stream
-    "scored_topk_launch": ([_P, _P, _P, _P, _P, _P, _P, ctypes.c_int64,
-                            ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                            ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
+    # q, x, valid, valid_bytes, part_s, part_m, out_s, out_ids, Q, M, K,
+    # metric, k, chunks, stream
+    "scored_topk_launch": ([_P, _P, _P, ctypes.c_int, _P, _P, _P, _P,
+                            ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                            ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+                           ctypes.c_int),
     # cand, q, mask, ids, part_s, part_m, out_s, out_ids, Q, M, K, metric,
     # k, chunks, stream
     "scored_topk_gathered_launch": ([_P, _P, _P, _P, _P, _P, _P, _P,

@@ -20,14 +20,30 @@
 // in one loop over k, ascending, in f32; IEEE sqrtf and division (the build
 // has no --use_fast_math).
 //
-// Bound on the H100 (3.35 TB/s): bytes.  K is 3–9 classes, so each score is
-// a few multiply-adds on 4·K bytes; a tensor core or a TPU-style 128-lane K
-// padding would only add bytes.  K is not padded.
+// K is 3–9 classes, so each score is a few multiply-adds on 4·K bytes (each
+// kernel's bound on the H100 is named below); a tensor core or a TPU-style
+// 128-lane K padding would only add bytes.  K is not padded.
 //
 // Design.
-//   * The score kernels run one thread per output (q, m), with a warp on
+//   * gathered_scores runs one thread per output (q, m), with a warp on
 //     neighbouring m: the output and the gathered candidates are read and
 //     written as contiguous spans.  A masked slot reads no candidate.
+//   * pairwise_scores has three shapes on the main path: the index build
+//     (92,482 vertices against <= 10 centroids), a flush's probe (64 queries
+//     against the same centroids) and the staged brute force (64 queries
+//     against all 92,482 rows).  The first two write a few hundred KB or
+//     less: what bounds them is the launch and one load latency, not bytes.
+//     So with few database rows (M <= kSmallM) a thread takes one output,
+//     with K a template constant and 32-bit indices, and issues all its
+//     loads at once; on the H100 (80GB HBM3, 700 W) that beat a block that
+//     stages the centroids, their norms and valid in shared memory at both
+//     shapes (tools/topk_variants.py).  With many rows (the staged brute
+//     force: a 23.7 MB output, bound by bytes) a thread takes a database
+//     row, neighbouring threads neighbouring m, loads it and its ‖x‖² once
+//     and scores it against kColQueries query rows held in shared memory,
+//     so each store instruction writes a contiguous span.  valid is read
+//     as it comes: bytes (bool/uint8, nonzero = live) or f32 (> 0 = live),
+//     so the index's bool mask needs no cast kernel a call.
 //   * The top-k kernels.  The TPU carries a running top-k across a
 //     sequential grid axis; Hopper blocks run in no order.  So every
 //     candidate is ranked by one total order -- score descending, then
@@ -35,19 +51,38 @@
 //     any merge order gives the reference's stable order (equal scores in
 //     ascending m; for the gathered kernel m is the position in the row, not
 //     the database id, as in the reference's concatenate-then-top_k).  A
-//     flush has Q = 64 queries, too few blocks for 132 SMs, so M is split
+//     batch has Q = 64 queries, too few blocks for 132 SMs, so M is split
 //     into chunks (the wrapper picks the count): pass 1 ranks one chunk of
-//     one query a block, and pass 2 merges the chunks' lists of each query
-//     from scratch.  With one chunk, pass 1 writes the result itself.  The
-//     last pass applies the reference's _finalize_topk: id -1 where the
-//     score is <= NEG_INF / 2, padding (-1, NEG_INF) from kk = min(k, M)
-//     up to k.  kk is at most kMaxTopK (topk_score.MAX_TOPK) = 32.
-//   * scored_topk (the brute-force path): each of a block's 128 threads
-//     keeps a private sorted top-kk of the m it strides over, in local
-//     memory; the block merges the threads' lists by a tree of two-list
-//     merges in 32 KiB of static shared memory, and pass 2 (a block a
-//     query) does the same over the chunks' lists.  Bound by that
-//     bookkeeping, not by bytes: most candidates enter a private list.
+//     one query (or of a tile of queries) a block, and pass 2, a warp a
+//     query, merges the chunks' sorted lists whole (warp_merge: a bitonic
+//     merge across lanes, about the cost of one insertion a list).  With one
+//     chunk, pass 1 writes the result itself.  The last pass applies the
+//     reference's _finalize_topk: id -1 where the score is <= NEG_INF / 2,
+//     padding (-1, NEG_INF) from kk = min(k, M) up to k.  kk is at most
+//     kMaxTopK (topk_score.MAX_TOPK) = 32.
+//   * scored_topk (the brute-force path, and the recall oracle): the
+//     database [M, K] is shared by every query, so a pass-1 block takes a
+//     tile of kQueryTile queries and one chunk of M.  Each warp keeps one
+//     warp-held list (below) a query of the tile, all in registers, and the
+//     query rows in registers too (K <= kRegClasses); each lane loads its
+//     kTopkUnroll candidate rows a round ahead, computes their ‖x‖² once,
+//     scores each against the tile's queries and offers each score to its
+//     query's list (warp_offer, one list after the other).  The block's
+//     warps then merge query i's lists into warp i (warp_merge).
+//     What bounds it on the H100 (NVIDIA H100 80GB HBM3, 700 W): not bytes
+//     (the database is 1.85 MB at cl-100k-1d8-l5, read from L2 by every
+//     tile) and not the 6·K + 4 operations a pair at the f32 peak, but the
+//     instructions issued around them (compare, ballot, selects, address
+//     and valid checks: tens a pair in the compiled loop), then the
+//     insertions, about kk·(1 + ln(n / kk)) for a list that sees n
+//     candidates, and a fixed ~10 µs of launches, prologue and merges.  So
+//     the tile is small (2: a tile of 4 made more lists and more
+//     insertions, and was slower at every k), loads run one round ahead (1-4
+//     % faster than loading a round's rows at its top at k <= 10; two or
+//     three rounds ahead changed nothing), and the chunk policy fills the
+//     card with exactly one wave of pass-1 blocks (kTopkBlocksPerSm an SM,
+//     pinned by the launch bounds), whose lists see as many candidates as
+//     that allows.
 //   * scored_topk_gathered (every IVF flush): a warp-held list.  Lane j of
 //     a warp holds the warp's j-th best (score, m) in registers.  Each
 //     round, every lane scores kUnroll candidates 32 apart, so the warp
@@ -56,8 +91,8 @@
 //     a compare and a shuffle up; once the list is full most rounds insert
 //     nothing.  The block's warps then store their lists in dynamic shared
 //     memory (warps * kk entries, at most 2 KiB) and warp 0 offers them to
-//     its own list the same way; pass 2 is one warp a query over the
-//     chunks' lists.  Nothing but the lists leaves registers.
+//     its own list the same way; pass 2 is the shared one above.  Nothing
+//     but the lists leaves registers.
 //     What bounds it: the bytes of the candidate block, once the insertions
 //     are few -- but each warp walks its rounds one after another, so the
 //     time is that of the rounds' memory latencies unless loads are in
@@ -73,6 +108,7 @@
 #include <climits>
 #include <cstdint>
 #include <limits>
+#include <type_traits>
 
 namespace {
 
@@ -80,12 +116,24 @@ constexpr int kWarp = 32;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kScoreThreads = 256;
 constexpr int kScoreMaxBlocks = 4096;   // grid-stride beyond
-constexpr int kTopkThreads = 128;
 constexpr int kMaxTopK = 32;
+// pairwise_scores: with at most kSmallM database rows, one thread an
+// output; otherwise blocks of kColThreads take a database row a thread,
+// each scored against kColQueries query rows.
+constexpr int kSmallM = 32;
+constexpr int kColThreads = 256;
+constexpr int kColQueries = 8;
+// scored_topk: warps of a pass-1 block (its dynamic shared memory is
+// 8 B * kQueryTile * kTopkWarps * kk), the queries a warp scores each
+// candidate against, and the resident pass-1 blocks an SM (<= 128 registers).
+constexpr int kTopkWarps = 8;
+constexpr int kQueryTile = 2;
+constexpr int kTopkBlocksPerSm = 2;
+constexpr int kTopkUnroll = 2;  // candidates a lane takes in one round (K <= kRegClasses)
 // scored_topk_gathered: warps of a pass-1 block (its dynamic shared memory
-// is 8 B * kGatherWarps * kk), queries (one warp each) of a pass-2 block,
-// the widest K whose candidate rows are prefetched into registers, and the
-// candidates a lane takes in one round.
+// is 8 B * kGatherWarps * kk), queries (one warp each) of a pass-2 block
+// (both top-k kernels), the widest K whose candidate rows are prefetched
+// into registers (both), and the candidates a lane takes in one round.
 constexpr int kGatherWarps = 8;
 constexpr int kGatherBlocksPerSm = 4;  // resident pass-1 blocks: <= 64 registers
 constexpr int kMergeWarps = 4;
@@ -95,16 +143,34 @@ constexpr float kNegInf = -FLT_MAX;
 constexpr float kCosEps = 1e-30f;
 constexpr int kL2 = 0;
 constexpr int kCosine = 1;
-// The empty slot of a private list: below every real candidate, NEG_INF and
+// The empty slot of a list: below every real candidate, NEG_INF and
 // -inf scores included (-inf ties with it and wins on m).
 constexpr float kEmptyScore = -std::numeric_limits<float>::infinity();
 constexpr int kEmptyPos = INT_MAX;
 
-__device__ __forceinline__ float finish_score(float dot, float qn2, float xn2, int metric) {
+// rq, rx: sqrtf(qn2), sqrtf(xn2), which a caller may compute once a row.
+__device__ __forceinline__ float finish_score(float dot, float qn2, float xn2, float rq, float rx,
+                                              int metric) {
   if (metric == kL2) return (2.f * dot - qn2) - xn2;
-  const float denom = sqrtf(qn2) * sqrtf(xn2);
+  const float denom = rq * rx;
   return denom > 0.f ? dot / fmaxf(denom, kCosEps) : 0.f;
 }
+
+__device__ __forceinline__ float finish_score(float dot, float qn2, float xn2, int metric) {
+  return finish_score(dot, qn2, xn2, sqrtf(qn2), sqrtf(xn2), metric);
+}
+
+// A valid operand as the caller holds it: none (all live), bytes (bool or
+// uint8, nonzero = live) or f32 (> 0 = live).
+struct Valid {
+  const void* p;
+  int bytes;  // 1 or 4
+  __device__ __forceinline__ bool live(int m) const {
+    if (p == nullptr) return true;
+    return bytes == 1 ? __ldg(static_cast<const unsigned char*>(p) + m) != 0
+                      : __ldg(static_cast<const float*>(p) + m) > 0.f;
+  }
+};
 
 __device__ __forceinline__ float score_of(const float* __restrict__ q,
                                           const float* __restrict__ x, int K,
@@ -123,86 +189,6 @@ __device__ __forceinline__ float score_of(const float* __restrict__ q,
 // The total order of the top-k: higher score first, then lower m.
 __device__ __forceinline__ bool better(float s1, int m1, float s2, int m2) {
   return s1 > s2 || (s1 == s2 && m1 < m2);
-}
-
-// Insert (s, m) into a sorted private list of kk entries if it belongs.
-__device__ __forceinline__ void push(float s, int m, float* ls, int* lm, int kk) {
-  if (!better(s, m, ls[kk - 1], lm[kk - 1])) return;
-  int j = kk - 1;
-  while (j > 0 && better(s, m, ls[j - 1], lm[j - 1])) {
-    ls[j] = ls[j - 1];
-    lm[j] = lm[j - 1];
-    --j;
-  }
-  ls[j] = s;
-  lm[j] = m;
-}
-
-__device__ __forceinline__ void clear_list(float* ls, int* lm, int kk) {
-  for (int j = 0; j < kk; ++j) {
-    ls[j] = kEmptyScore;
-    lm[j] = kEmptyPos;
-  }
-}
-
-// Store every thread's private list into the block's shared lists and merge
-// them into list 0 by a tree of two-list merges (each keeps the top kk).
-// Every thread of the block calls this.
-__device__ void block_merge(const float* ls, const int* lm, float* sh_s, int* sh_m,
-                            int kk) {
-  const int t = threadIdx.x;
-  for (int j = 0; j < kk; ++j) {
-    sh_s[t * kMaxTopK + j] = ls[j];
-    sh_m[t * kMaxTopK + j] = lm[j];
-  }
-  for (int stride = 1; stride < kTopkThreads; stride <<= 1) {
-    __syncthreads();
-    if (t % (2 * stride) == 0) {
-      float* as = sh_s + t * kMaxTopK;
-      int* am = sh_m + t * kMaxTopK;
-      const float* bs = sh_s + (t + stride) * kMaxTopK;
-      const int* bm = sh_m + (t + stride) * kMaxTopK;
-      float os[kMaxTopK];
-      int om[kMaxTopK];
-      int i = 0, j = 0;  // i + j == o < kk, so neither runs past its list
-      for (int o = 0; o < kk; ++o) {
-        if (better(as[i], am[i], bs[j], bm[j])) {
-          os[o] = as[i];
-          om[o] = am[i];
-          ++i;
-        } else {
-          os[o] = bs[j];
-          om[o] = bm[j];
-          ++j;
-        }
-      }
-      for (int o = 0; o < kk; ++o) {
-        as[o] = os[o];
-        am[o] = om[o];
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// Write query qi's merged list (shared list 0) in the reference's
-// _finalize_topk convention.  ids == nullptr: the id is the position m.
-__device__ void finalize(const float* sh_s, const int* sh_m, const int* __restrict__ ids,
-                         int64_t qi, int64_t M, int kk, int k, float* __restrict__ out_s,
-                         int* __restrict__ out_ids) {
-  for (int j = threadIdx.x; j < k; j += blockDim.x) {
-    float s = kNegInf;
-    int id = -1;
-    if (j < kk) {
-      s = sh_s[j];
-      // (an empty slot reaches here only past a NaN score: it keeps id -1)
-      if (s > kNegInf * 0.5f && sh_m[j] != kEmptyPos) {
-        id = ids == nullptr ? sh_m[j] : ids[qi * M + sh_m[j]];
-      }
-    }
-    out_s[qi * k + j] = s;
-    out_ids[qi * k + j] = id;
-  }
 }
 
 // A warp's running top list: lane j holds the warp's j-th best (s, m) under
@@ -235,6 +221,33 @@ __device__ __forceinline__ void warp_insert(WarpTopk& t, float ns, int nm, int l
   }
 }
 
+// Merge another warp list (os, om) -- sorted best first over the 32 lanes,
+// as every warp list is -- into t: the other list reversed is taken lane by
+// lane where better than t's entry, which leaves the best 32 of both as a
+// bitonic sequence, and a bitonic merge (5 compare-exchange steps across
+// lanes) sorts it.  t's first kk entries end as offering the other list's
+// entries one by one leaves them, at the cost of about one insertion.
+__device__ __forceinline__ void warp_merge(WarpTopk& t, float os, int om, int kk, int lane) {
+  const float rs = __shfl_sync(kFullMask, os, kWarp - 1 - lane);
+  const int rm = __shfl_sync(kFullMask, om, kWarp - 1 - lane);
+  if (better(rs, rm, t.s, t.m)) {
+    t.s = rs;
+    t.m = rm;
+  }
+#pragma unroll
+  for (int stride = kWarp / 2; stride > 0; stride >>= 1) {
+    const float xs = __shfl_xor_sync(kFullMask, t.s, stride);
+    const int xm = __shfl_xor_sync(kFullMask, t.m, stride);
+    // the lower lane of each pair keeps the better entry
+    if ((lane & stride) == 0 ? better(xs, xm, t.s, t.m) : better(t.s, t.m, xs, xm)) {
+      t.s = xs;
+      t.m = xm;
+    }
+  }
+  t.bar_s = __shfl_sync(kFullMask, t.s, kk - 1);
+  t.bar_m = __shfl_sync(kFullMask, t.m, kk - 1);
+}
+
 // Offer every lane's candidate (s, m) to the warp's list.  The lanes whose
 // candidate beats the bar are inserted one at a time, lowest lane first, and
 // the bar is read again after each insertion.  The result does not depend on
@@ -251,7 +264,8 @@ __device__ __forceinline__ void warp_offer(WarpTopk& t, float s, int m, int kk, 
   }
 }
 
-// finalize for a warp-held list: lane j < kk writes its own entry.
+// Write query qi's list in the reference's _finalize_topk convention: lane
+// j < kk writes its own entry.  ids == nullptr: the id is the position m.
 __device__ __forceinline__ void warp_finalize(const WarpTopk& t, const int* __restrict__ ids,
                                               int64_t qi, int64_t M, int kk, int k,
                                               float* __restrict__ out_s,
@@ -262,24 +276,112 @@ __device__ __forceinline__ void warp_finalize(const WarpTopk& t, const int* __re
     if (j < kk) {  // j == lane
       s = t.s;
       // (an empty entry reaches here only past a NaN score: it keeps id -1)
-      if (s > kNegInf * 0.5f && t.m != kEmptyPos) id = ids[qi * M + t.m];
+      if (s > kNegInf * 0.5f && t.m != kEmptyPos) id = ids == nullptr ? t.m : ids[qi * M + t.m];
     }
     out_s[qi * k + j] = s;
     out_ids[qi * k + j] = id;
   }
 }
 
+// pairwise_scores with few database rows (M <= kSmallM): one thread an
+// output (q, m) = (i / M, i % M) in 32-bit arithmetic; K == KC <=
+// kRegClasses is a template constant, so all of a thread's loads (its two
+// rows and valid) issue together.  ‖q‖² and ‖x‖² are summed again for each
+// output: K multiply-adds, where the time is the launch and one load
+// latency.  KC == 0: any K, score_of's loop.  The sums are score_of's, term
+// for term.
+template <int KC>
 __global__ void __launch_bounds__(kScoreThreads)
-pairwise_scores_kernel(const float* __restrict__ q, const float* __restrict__ x,
-                       const float* __restrict__ valid, float* __restrict__ out,
-                       int64_t Q, int64_t M, int K, int metric) {
-  const int64_t total = Q * M;
-  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
-       i += step) {
-    const int64_t qi = i / M, m = i - qi * M;
-    const bool live = valid == nullptr || valid[m] > 0.f;
-    out[i] = live ? score_of(q + qi * K, x + m * K, K, metric) : kNegInf;
+pairwise_few_kernel(const float* __restrict__ q, const float* __restrict__ x, Valid valid,
+                    float* __restrict__ out, int Q, int M, int K, int metric) {
+  const int i = blockIdx.x * kScoreThreads + threadIdx.x;
+  if (i >= Q * M) return;
+  const int qi = i / M, m = i - qi * M;
+  const bool live = valid.live(m);
+  float s;
+  if constexpr (KC > 0) {
+    float a[KC], b[KC];
+#pragma unroll
+    for (int j = 0; j < KC; ++j) {
+      a[j] = __ldg(q + static_cast<int64_t>(qi) * KC + j);
+      b[j] = __ldg(x + m * KC + j);
+    }
+    float dot = 0.f, qn2 = 0.f, xn2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < KC; ++j) {
+      dot = fmaf(a[j], b[j], dot);
+      qn2 = fmaf(a[j], a[j], qn2);
+      xn2 = fmaf(b[j], b[j], xn2);
+    }
+    s = finish_score(dot, qn2, xn2, metric);
+  } else {
+    s = score_of(q + static_cast<int64_t>(qi) * K, x + static_cast<int64_t>(m) * K, K, metric);
+  }
+  out[i] = live ? s : kNegInf;
+}
+
+// pairwise_scores with many database rows: block b takes query tile
+// b / mblocks (kColQueries rows, their ‖q‖² and √‖q‖² in shared memory) and
+// database rows kColThreads * (b % mblocks) on, one a thread; each thread
+// loads its row (into registers for KC > 0, issued before the barrier that
+// waits for the tile) and computes its ‖x‖² once, then writes its column of
+// the tile's outputs, so neighbouring threads store neighbouring m.
+template <int KC>
+__global__ void __launch_bounds__(kColThreads)
+pairwise_cols_kernel(const float* __restrict__ q, const float* __restrict__ x, Valid valid,
+                     float* __restrict__ out, int Q, int M, int K, int mblocks, int metric) {
+  __shared__ float sh_q[kColQueries * (KC > 0 ? KC : 1)];
+  __shared__ float sh_qn2[kColQueries];
+  __shared__ float sh_rq[kColQueries];
+  const int t = threadIdx.x;
+  const int q0 = (blockIdx.x / mblocks) * kColQueries;
+  const int m = (blockIdx.x % mblocks) * kColThreads + t;
+  const int nq = Q - q0 < kColQueries ? Q - q0 : kColQueries;
+  const float* qtile = q + static_cast<int64_t>(q0) * K;
+  const float* xrow = x + static_cast<int64_t>(m) * K;
+  const bool in = m < M;
+  const bool live = in && valid.live(m);
+  float xr[KC > 0 ? KC : 1];
+  if constexpr (KC > 0) {
+#pragma unroll
+    for (int j = 0; j < KC; ++j) xr[j] = in ? __ldg(xrow + j) : 0.f;
+    if (t < nq * KC) sh_q[t] = __ldg(qtile + t);
+  }
+  if (t < nq) {
+    float qn2 = 0.f;
+    for (int j = 0; j < K; ++j) {
+      const float a = __ldg(qtile + t * K + j);
+      qn2 = fmaf(a, a, qn2);
+    }
+    sh_qn2[t] = qn2;
+    sh_rq[t] = sqrtf(qn2);
+  }
+  __syncthreads();
+  if (!in) return;
+  float xn2 = 0.f;
+  if constexpr (KC > 0) {
+#pragma unroll
+    for (int j = 0; j < KC; ++j) xn2 = fmaf(xr[j], xr[j], xn2);
+  } else {
+    for (int j = 0; j < K; ++j) {
+      const float b = __ldg(xrow + j);
+      xn2 = fmaf(b, b, xn2);
+    }
+  }
+  const float rx = metric == kCosine ? sqrtf(xn2) : 0.f;  // l2 reads no root
+  for (int i = 0; i < nq; ++i) {
+    float s = kNegInf;
+    if (live) {
+      float dot = 0.f;
+      if constexpr (KC > 0) {
+#pragma unroll
+        for (int j = 0; j < KC; ++j) dot = fmaf(sh_q[i * KC + j], xr[j], dot);
+      } else {
+        for (int j = 0; j < K; ++j) dot = fmaf(__ldg(qtile + i * K + j), __ldg(xrow + j), dot);
+      }
+      s = finish_score(dot, sh_qn2[i], xn2, sh_rq[i], rx, metric);
+    }
+    out[static_cast<int64_t>(q0 + i) * M + m] = s;
   }
 }
 
@@ -296,57 +398,164 @@ gathered_scores_kernel(const float* __restrict__ cand, const float* __restrict__
   }
 }
 
-// Pass 1 of scored_topk: x is the database [M, K] and valid [M] (nullable).
-__global__ void __launch_bounds__(kTopkThreads)
-topk_pass1_kernel(const float* __restrict__ q, const float* __restrict__ x,
-                  const float* __restrict__ valid, float* __restrict__ part_s,
-                  int* __restrict__ part_m, float* __restrict__ out_s,
-                  int* __restrict__ out_ids, int64_t M, int K, int metric, int kk, int k,
-                  int chunks, int64_t chunk_len) {
-  __shared__ float sh_s[kTopkThreads * kMaxTopK];
-  __shared__ int sh_m[kTopkThreads * kMaxTopK];
-  const int64_t qi = blockIdx.x / chunks;
+// Pass 1 of scored_topk: block (query tile, chunk) over the database x
+// [M, K] and valid [M] (nullable).  kTopkWarps warps stride over the chunk
+// and each warp keeps one warp-held list for each of the tile's nq <=
+// kQueryTile queries; a candidate's row and ‖x‖² are loaded and computed
+// once and scored against all nq queries, and each score goes to its
+// query's list (warp_offer).  Then warp i merges query i's lists of all
+// warps.  KC > 0 (K == KC <= kRegClasses): the query rows and candidate
+// rows live in registers, each lane takes kTopkUnroll candidates a round,
+// 32 apart, and a round's rows (and valid) are loaded one round ahead;
+// KC == 0 (any K): one candidate a lane and round, scored straight from
+// memory.  The sums are score_of's, term for term.
+template <int KC>
+__global__ void __launch_bounds__(kTopkWarps * kWarp, kTopkBlocksPerSm)
+topk_pass1_kernel(const float* __restrict__ q, const float* __restrict__ x, Valid valid,
+                  float* __restrict__ part_s, int* __restrict__ part_m,
+                  float* __restrict__ out_s, int* __restrict__ out_ids, int Q, int M, int K,
+                  int metric, int kk, int k, int chunks, int chunk_len) {
+  extern __shared__ float sh_s[];  // [kQueryTile][kTopkWarps][kk] scores, then positions
+  int* sh_m = reinterpret_cast<int*>(sh_s + kQueryTile * kTopkWarps * kk);
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
   const int c = blockIdx.x % chunks;
-  const int64_t m0 = c * chunk_len;
-  const int64_t m1 = m0 + chunk_len < M ? m0 + chunk_len : M;
-  const float* qrow = q + qi * K;
-  float ls[kMaxTopK];
-  int lm[kMaxTopK];
-  clear_list(ls, lm, kk);
-  for (int64_t m = m0 + threadIdx.x; m < m1; m += kTopkThreads) {
-    const bool live = valid == nullptr || valid[m] > 0.f;
-    const float s = live ? score_of(qrow, x + m * K, K, metric) : kNegInf;
-    push(s, static_cast<int>(m), ls, lm, kk);
+  const int q0 = (blockIdx.x / chunks) * kQueryTile;
+  const int nq = Q - q0 < kQueryTile ? Q - q0 : kQueryTile;
+  const int m0 = c * chunk_len;
+  const int m1 = M - m0 < chunk_len ? M : m0 + chunk_len;
+  const float* qtile = q + static_cast<int64_t>(q0) * K;
+  float qn2[kQueryTile], rq[kQueryTile];
+  WarpTopk t[kQueryTile];
+  float qr[kQueryTile][KC > 0 ? KC : 1];
+#pragma unroll
+  for (int i = 0; i < kQueryTile; ++i) {
+    qn2[i] = 0.f;
+    if constexpr (KC > 0) {
+#pragma unroll
+      for (int j = 0; j < KC; ++j) {
+        qr[i][j] = i < nq ? __ldg(qtile + i * KC + j) : 0.f;
+        qn2[i] = fmaf(qr[i][j], qr[i][j], qn2[i]);
+      }
+    } else {
+      for (int j = 0; i < nq && j < K; ++j) {
+        const float a = __ldg(qtile + i * K + j);
+        qn2[i] = fmaf(a, a, qn2[i]);
+      }
+    }
+    rq[i] = sqrtf(qn2[i]);
+    t[i] = warp_list_empty();
   }
-  block_merge(ls, lm, sh_s, sh_m, kk);
+  // offer candidate m, scored s[i] if live, to the tile's lists
+  auto offer = [&](int m, bool live, float (&s)[kQueryTile]) {
+    const bool in = m < m1;
+#pragma unroll
+    for (int i = 0; i < kQueryTile; ++i) {
+      if (i < nq) {  // block-uniform
+        warp_offer(t[i], in ? (live ? s[i] : kNegInf) : kEmptyScore, in ? m : kEmptyPos, kk, lane);
+      }
+    }
+  };
+  if constexpr (KC > 0) {
+    constexpr int kSpan = kTopkUnroll * kWarp;  // a warp's m in a round
+    constexpr int kStep = kTopkWarps * kSpan;   // the block's
+    // the row of candidate m (zeros past the chunk) and whether it is live
+    auto load = [&](float (&xr)[KC], bool& live, int m) {
+      const bool in = m < m1;
+#pragma unroll
+      for (int j = 0; j < KC; ++j) xr[j] = in ? __ldg(x + static_cast<int64_t>(m) * KC + j) : 0.f;
+      live = in && valid.live(m);
+    };
+    float xr[kTopkUnroll][KC];
+    bool live[kTopkUnroll];
+#pragma unroll
+    for (int u = 0; u < kTopkUnroll; ++u) load(xr[u], live[u], m0 + warp * kSpan + u * kWarp + lane);
+    for (int base = m0 + warp * kSpan; base < m1; base += kStep) {  // warp-uniform
+      float xn[kTopkUnroll][KC];  // the next round's rows, loaded now
+      bool live_next[kTopkUnroll];
+#pragma unroll
+      for (int u = 0; u < kTopkUnroll; ++u) {
+        load(xn[u], live_next[u], base + kStep + u * kWarp + lane);
+      }
+#pragma unroll
+      for (int u = 0; u < kTopkUnroll; ++u) {
+        float xn2 = 0.f;
+#pragma unroll
+        for (int j = 0; j < KC; ++j) xn2 = fmaf(xr[u][j], xr[u][j], xn2);
+        const float rx = metric == kCosine ? sqrtf(xn2) : 0.f;  // l2 reads no root
+        float s[kQueryTile];
+#pragma unroll
+        for (int i = 0; i < kQueryTile; ++i) {
+          float dot = 0.f;
+#pragma unroll
+          for (int j = 0; j < KC; ++j) dot = fmaf(qr[i][j], xr[u][j], dot);
+          s[i] = finish_score(dot, qn2[i], xn2, rq[i], rx, metric);
+        }
+        offer(base + u * kWarp + lane, live[u], s);
+      }
+#pragma unroll
+      for (int u = 0; u < kTopkUnroll; ++u) {
+#pragma unroll
+        for (int j = 0; j < KC; ++j) xr[u][j] = xn[u][j];
+        live[u] = live_next[u];
+      }
+    }
+  } else {
+    constexpr int kStep = kTopkWarps * kWarp;
+    for (int base = m0 + warp * kWarp; base < m1; base += kStep) {  // warp-uniform
+      const int m = base + lane;
+      const bool live = m < m1 && valid.live(m);
+      const float* xrow = x + static_cast<int64_t>(m) * K;
+      float s[kQueryTile] = {};
+      if (live) {
+        float xn2 = 0.f;
+        for (int j = 0; j < K; ++j) {
+          const float b = __ldg(xrow + j);
+          xn2 = fmaf(b, b, xn2);
+        }
+        const float rx = metric == kCosine ? sqrtf(xn2) : 0.f;  // l2 reads no root
+#pragma unroll
+        for (int i = 0; i < kQueryTile; ++i) {
+          float dot = 0.f;
+          for (int j = 0; i < nq && j < K; ++j) {
+            dot = fmaf(__ldg(qtile + i * K + j), __ldg(xrow + j), dot);
+          }
+          s[i] = finish_score(dot, qn2[i], xn2, rq[i], rx, metric);
+        }
+      }
+      offer(m, live, s);
+    }
+  }
+  // warp i takes query i's lists of the other warps through shared memory
+#pragma unroll
+  for (int i = 0; i < kQueryTile; ++i) {
+    if (i < nq && lane < kk) {
+      sh_s[(i * kTopkWarps + warp) * kk + lane] = t[i].s;
+      sh_m[(i * kTopkWarps + warp) * kk + lane] = t[i].m;
+    }
+  }
+  __syncthreads();
+  if (warp >= nq) return;  // whole warps leave together
+  WarpTopk mine = t[0];
+#pragma unroll
+  for (int i = 1; i < kQueryTile; ++i) {
+    if (warp == i) mine = t[i];  // a register select, not a dynamic index
+  }
+  for (int w = 0; w < kTopkWarps; ++w) {
+    if (w == warp) continue;
+    const bool in = lane < kk;
+    const int at = (warp * kTopkWarps + w) * kk + lane;
+    warp_merge(mine, in ? sh_s[at] : kEmptyScore, in ? sh_m[at] : kEmptyPos, kk, lane);
+  }
+  const int qi = q0 + warp;
   if (chunks == 1) {
-    finalize(sh_s, sh_m, nullptr, qi, M, kk, k, out_s, out_ids);
+    warp_finalize(mine, nullptr, qi, M, kk, k, out_s, out_ids, lane);
     return;
   }
-  const int64_t base = (qi * chunks + c) * kk;
-  for (int j = threadIdx.x; j < kk; j += blockDim.x) {
-    part_s[base + j] = sh_s[j];
-    part_m[base + j] = sh_m[j];
+  if (lane < kk) {
+    const int64_t at = (static_cast<int64_t>(qi) * chunks + c) * kk + lane;
+    part_s[at] = mine.s;
+    part_m[at] = mine.m;
   }
-}
-
-// Pass 2 of scored_topk: one block per query merges its chunks' lists.
-__global__ void __launch_bounds__(kTopkThreads)
-topk_pass2_kernel(const float* __restrict__ part_s, const int* __restrict__ part_m,
-                  const int* __restrict__ ids, float* __restrict__ out_s,
-                  int* __restrict__ out_ids, int64_t M, int kk, int k, int chunks) {
-  __shared__ float sh_s[kTopkThreads * kMaxTopK];
-  __shared__ int sh_m[kTopkThreads * kMaxTopK];
-  const int64_t qi = blockIdx.x;
-  const int64_t n = static_cast<int64_t>(chunks) * kk;
-  const float* ps = part_s + qi * n;
-  const int* pm = part_m + qi * n;
-  float ls[kMaxTopK];
-  int lm[kMaxTopK];
-  clear_list(ls, lm, kk);
-  for (int64_t e = threadIdx.x; e < n; e += kTopkThreads) push(ps[e], pm[e], ls, lm, kk);
-  block_merge(ls, lm, sh_s, sh_m, kk);
-  finalize(sh_s, sh_m, ids, qi, M, kk, k, out_s, out_ids);
 }
 
 // Pass 1 of scored_topk_gathered: block (q, chunk), kGatherWarps warps each
@@ -472,22 +681,23 @@ gathered_topk_pass1_kernel(const float* __restrict__ q, const float* __restrict_
   }
 }
 
-// Pass 2 of scored_topk_gathered: one warp a query merges its chunks' lists.
+// Pass 2 of both top-k kernels: one warp a query merges its chunks' lists;
+// ids == nullptr (scored_topk): the id is the position.
 __global__ void __launch_bounds__(kMergeWarps * kWarp)
-gathered_topk_pass2_kernel(const float* __restrict__ part_s, const int* __restrict__ part_m,
-                           const int* __restrict__ ids, float* __restrict__ out_s,
-                           int* __restrict__ out_ids, int64_t Q, int64_t M, int kk, int k,
-                           int chunks) {
+topk_pass2_kernel(const float* __restrict__ part_s, const int* __restrict__ part_m,
+                  const int* __restrict__ ids, float* __restrict__ out_s,
+                  int* __restrict__ out_ids, int64_t Q, int64_t M, int kk, int k, int chunks) {
   const int lane = threadIdx.x % kWarp;
   const int64_t qi = static_cast<int64_t>(blockIdx.x) * kMergeWarps + threadIdx.x / kWarp;
   if (qi >= Q) return;  // whole warps leave together
-  const int64_t n = static_cast<int64_t>(chunks) * kk;
-  const float* ps = part_s + qi * n;
-  const int* pm = part_m + qi * n;
+  const float* ps = part_s + qi * chunks * kk;
+  const int* pm = part_m + qi * chunks * kk;
   WarpTopk t = warp_list_empty();
-  for (int64_t e0 = 0; e0 < n; e0 += kWarp) {
-    const int64_t e = e0 + lane;
-    warp_offer(t, e < n ? ps[e] : kEmptyScore, e < n ? pm[e] : kEmptyPos, kk, lane);
+#pragma unroll 4
+  for (int c = 0; c < chunks; ++c) {  // each chunk's list is sorted: merge it whole
+    const bool in = lane < kk;
+    warp_merge(t, in ? ps[c * kk + lane] : kEmptyScore, in ? pm[c * kk + lane] : kEmptyPos, kk,
+               lane);
   }
   warp_finalize(t, ids, qi, M, kk, k, out_s, out_ids, lane);
 }
@@ -511,28 +721,81 @@ int check_topk(int64_t Q, int64_t M, int K, int metric, int k, int chunks,
   return cudaSuccess;
 }
 
+// Call f(std::integral_constant<int, KC>{}) with KC = K for K <= kRegClasses
+// (one instantiation a K) and KC = 0 (any K) past it.
+template <typename F>
+void with_classes(int K, F&& f) {
+  static_assert(kRegClasses == 8, "one case a K up to kRegClasses");
+  switch (K) {
+    case 1: f(std::integral_constant<int, 1>{}); break;
+    case 2: f(std::integral_constant<int, 2>{}); break;
+    case 3: f(std::integral_constant<int, 3>{}); break;
+    case 4: f(std::integral_constant<int, 4>{}); break;
+    case 5: f(std::integral_constant<int, 5>{}); break;
+    case 6: f(std::integral_constant<int, 6>{}); break;
+    case 7: f(std::integral_constant<int, 7>{}); break;
+    case 8: f(std::integral_constant<int, 8>{}); break;
+    default: f(std::integral_constant<int, 0>{}); break;
+  }
+}
+
+bool bad_valid(const void* valid, int valid_bytes) {
+  return valid != nullptr && valid_bytes != 1 && valid_bytes != 4;
+}
+
+// Pass 2 of a top-k launch in `chunks` chunks (none at one chunk).
+int launch_merge(const float* ps, const int* pm, const int* ids, float* os, int* oi, int64_t Q,
+                 int64_t M, int kk, int k, int chunks, cudaStream_t s) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || chunks == 1) return static_cast<int>(err);
+  const unsigned merge_blocks = static_cast<unsigned>((Q + kMergeWarps - 1) / kMergeWarps);
+  topk_pass2_kernel<<<merge_blocks, kMergeWarps * kWarp, 0, s>>>(ps, pm, ids, os, oi, Q, M, kk,
+                                                                 k, chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
 // C interface.  Every launcher returns cudaGetLastError() right after its
 // launches (0 = launched); it launches on the given stream and never syncs.
-// metric: 0 = l2, 1 = cosine.
+// metric: 0 = l2, 1 = cosine.  valid_bytes: 1 (bool/uint8) or 4 (f32), read
+// only when valid is not null.
 // ---------------------------------------------------------------------------
 
 extern "C" {
 
 int topk_kernels_max_topk() { return kMaxTopK; }
 
-int pairwise_scores_launch(const void* q, const void* x, const void* valid, void* out,
-                           int64_t Q, int64_t M, int K, int metric, void* stream) {
-  if (Q < 0 || M < 0 || K < 1 || (metric != kL2 && metric != kCosine)) {
+int pairwise_scores_launch(const void* q, const void* x, const void* valid, int valid_bytes,
+                           void* out, int64_t Q, int64_t M, int K, int metric, void* stream) {
+  if (Q < 0 || M < 0 || Q >= INT_MAX || M >= INT_MAX || K < 1 ||
+      (metric != kL2 && metric != kCosine) || bad_valid(valid, valid_bytes)) {
     return cudaErrorInvalidValue;
   }
   if (Q == 0 || M == 0) return cudaSuccess;
-  pairwise_scores_kernel<<<score_blocks(Q * M), kScoreThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(x),
-      static_cast<const float*>(valid), static_cast<float*>(out), Q, M, K, metric);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* qf = static_cast<const float*>(q);
+  const float* xf = static_cast<const float*>(x);
+  float* of = static_cast<float*>(out);
+  const Valid v{valid, valid_bytes};
+  const int nq = static_cast<int>(Q), nm = static_cast<int>(M);
+  if (M <= kSmallM && Q * M < INT_MAX - kScoreThreads) {  // i and Q * M fit an int
+    const unsigned blocks = static_cast<unsigned>((Q * M + kScoreThreads - 1) / kScoreThreads);
+    with_classes(K, [&](auto kc) {
+      pairwise_few_kernel<decltype(kc)::value><<<blocks, kScoreThreads, 0, s>>>(qf, xf, v, of, nq,
+                                                                              nm, K, metric);
+    });
+  } else {
+    const int64_t mblocks = (M + kColThreads - 1) / kColThreads;
+    const int64_t blocks = (Q + kColQueries - 1) / kColQueries * mblocks;
+    if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+    with_classes(K, [&](auto kc) {
+      pairwise_cols_kernel<decltype(kc)::value>
+          <<<static_cast<unsigned>(blocks), kColThreads, 0, s>>>(
+              qf, xf, v, of, nq, nm, K, static_cast<int>(mblocks), metric);
+    });
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -549,25 +812,35 @@ int gathered_scores_launch(const void* cand, const void* q, const void* mask, vo
   return static_cast<int>(cudaGetLastError());
 }
 
-int scored_topk_launch(const void* q, const void* x, const void* valid, void* part_s,
-                       void* part_m, void* out_s, void* out_ids, int64_t Q, int64_t M,
-                       int K, int metric, int k, int chunks, void* stream) {
+int scored_topk_launch(const void* q, const void* x, const void* valid, int valid_bytes,
+                       void* part_s, void* part_m, void* out_s, void* out_ids, int64_t Q,
+                       int64_t M, int K, int metric, int k, int chunks, void* stream) {
   int kk;
   const int bad = check_topk(Q, M, K, metric, k, chunks, part_s, part_m, &kk);
   if (bad != cudaSuccess) return bad;
+  // a lane's next row, a round ahead, still has an int position
+  if (bad_valid(valid, valid_bytes) || M > INT_MAX - 2 * kTopkWarps * kTopkUnroll * kWarp) {
+    return cudaErrorInvalidValue;
+  }
+  const int64_t blocks = (Q + kQueryTile - 1) / kQueryTile * chunks;
+  if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t chunk_len = (M + chunks - 1) / chunks;
-  topk_pass1_kernel<<<static_cast<unsigned>(Q * chunks), kTopkThreads, 0, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(x),
-      static_cast<const float*>(valid), static_cast<float*>(part_s),
-      static_cast<int*>(part_m), static_cast<float*>(out_s), static_cast<int*>(out_ids), M,
-      K, metric, kk, k, chunks, chunk_len);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || chunks == 1) return static_cast<int>(err);
-  topk_pass2_kernel<<<static_cast<unsigned>(Q), kTopkThreads, 0, s>>>(
-      static_cast<const float*>(part_s), static_cast<const int*>(part_m), nullptr,
-      static_cast<float*>(out_s), static_cast<int*>(out_ids), M, kk, k, chunks);
-  return static_cast<int>(cudaGetLastError());
+  const int chunk_len = static_cast<int>((M + chunks - 1) / chunks);
+  const size_t smem = (sizeof(float) + sizeof(int)) * kQueryTile * kTopkWarps * kk;
+  const float* qf = static_cast<const float*>(q);
+  const float* xf = static_cast<const float*>(x);
+  const Valid v{valid, valid_bytes};
+  float* ps = static_cast<float*>(part_s);
+  int* pm = static_cast<int*>(part_m);
+  float* os = static_cast<float*>(out_s);
+  int* oi = static_cast<int*>(out_ids);
+  with_classes(K, [&](auto kc) {
+    topk_pass1_kernel<decltype(kc)::value>
+        <<<static_cast<unsigned>(blocks), kTopkWarps * kWarp, smem, s>>>(
+            qf, xf, v, ps, pm, os, oi, static_cast<int>(Q), static_cast<int>(M), K, metric, kk,
+            k, chunks, chunk_len);
+  });
+  return launch_merge(ps, pm, nullptr, os, oi, Q, M, kk, k, chunks, s);
 }
 
 int scored_topk_gathered_launch(const void* cand, const void* q, const void* mask,
@@ -590,27 +863,11 @@ int scored_topk_gathered_launch(const void* cand, const void* q, const void* mas
   int* pm = static_cast<int*>(part_m);
   float* os = static_cast<float*>(out_s);
   int* oi = static_cast<int*>(out_ids);
-#define PASS1(KC)                                                          \
-  gathered_topk_pass1_kernel<KC><<<blocks, kGatherWarps * kWarp, smem, s>>>( \
-      qf, cf, mf, idp, ps, pm, os, oi, M, K, metric, kk, k, chunks, chunk_len)
-  switch (K) {  // one instantiation a K up to kRegClasses
-    case 1: PASS1(1); break;
-    case 2: PASS1(2); break;
-    case 3: PASS1(3); break;
-    case 4: PASS1(4); break;
-    case 5: PASS1(5); break;
-    case 6: PASS1(6); break;
-    case 7: PASS1(7); break;
-    case 8: PASS1(8); break;
-    default: PASS1(0); break;
-  }
-#undef PASS1
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || chunks == 1) return static_cast<int>(err);
-  const unsigned merge_blocks = static_cast<unsigned>((Q + kMergeWarps - 1) / kMergeWarps);
-  gathered_topk_pass2_kernel<<<merge_blocks, kMergeWarps * kWarp, 0, s>>>(
-      ps, pm, idp, os, oi, Q, M, kk, k, chunks);
-  return static_cast<int>(cudaGetLastError());
+  with_classes(K, [&](auto kc) {
+    gathered_topk_pass1_kernel<decltype(kc)::value><<<blocks, kGatherWarps * kWarp, smem, s>>>(
+        qf, cf, mf, idp, ps, pm, os, oi, M, K, metric, kk, k, chunks, chunk_len);
+  });
+  return launch_merge(ps, pm, idp, os, oi, Q, M, kk, k, chunks, s);
 }
 
 }  // extern "C"

@@ -17,11 +17,11 @@ Metrics: ``l2`` (−‖q − x‖², higher is closer) and ``cosine``.  Masked s
 score ``NEG_INF``; ``masked_topk`` (plain torch, as in the reference) gives
 them id −1.
 
-Bound on the H100: bytes (K is a handful of classes).  The top-k kernels
-rank by score, then by candidate position, so any merge order reproduces
-the reference's stable tie order; see the source for the two-pass designs
-(``scored_topk_gathered`` keeps its lists in a warp's registers,
-``scored_topk`` in each thread's local memory).
+The top-k kernels rank by score, then by candidate position, so any merge
+order reproduces the reference's stable tie order; both keep their lists in
+a warp's registers, ``scored_topk`` one a query of a tile of queries that
+share each database row it loads.  The source says what bounds each kernel
+on the H100 and what its design does about it.
 
 A CPU tensor takes the plain version (``repro_torch.kernels.ref``); a CUDA
 tensor launches the kernel or raises.  The one other route is open and
@@ -49,15 +49,17 @@ METRICS = ("l2", "cosine")
 _METRIC_CODE = {"l2": 0, "cosine": 1}
 
 # The widest top-k the fused kernels keep (``kMaxTopK`` in
-# csrc/topk_kernels.cu): ``scored_topk`` holds a private list of up to 32
-# (score, position) pairs a thread, ``scored_topk_gathered`` one entry a
-# lane of a warp.
+# csrc/topk_kernels.cu): one (score, position) entry a lane of a warp.
 MAX_TOPK = 32
-# The top-k kernels split M into chunks so that a 64-query flush still
-# fills the card.  ``scored_topk``: about so many blocks of 128 threads per
-# SM, and never fewer than so many candidates a block.
-_BLOCKS_PER_SM = 8
-_MIN_CHUNK = 1024
+# The top-k kernels split M into chunks so that a 64-query batch still
+# fills the card.  ``scored_topk``: pass-1 blocks of 8 warps, each block a
+# tile of ``_QUERY_TILE`` queries (``kQueryTile``) and one chunk; no more
+# blocks than the SMs hold at once (``kTopkBlocksPerSm``, which the kernel's
+# launch bounds guarantee), and chunks of at least ``_MIN_CHUNK``
+# candidates, 4 rounds of the block's 256 lanes taking 2 each.
+_QUERY_TILE = 2
+_BLOCKS_PER_SM = 2
+_MIN_CHUNK = 2048
 # ``scored_topk_gathered``: pass-1 blocks of 8 warps (``kGatherWarps``),
 # each warp scoring 64 candidates a round; no more blocks than the SMs hold
 # at once (``kGatherBlocksPerSm``, which the kernel's launch bounds
@@ -79,12 +81,8 @@ def _check_k(k: int) -> int:
     return k
 
 
-def _mask_operand(mask: torch.Tensor | None, name: str, shape: tuple,
-                  device: torch.device) -> torch.Tensor | None:
-    """A valid/mask operand as contiguous f32 on ``device`` (nonzero =
-    live); ``None`` stays ``None``."""
-    if mask is None:
-        return None
+def _check_mask(mask: torch.Tensor, name: str, shape: tuple,
+                device: torch.device) -> None:
     if not isinstance(mask, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor")
     if tuple(mask.shape) != shape:
@@ -92,7 +90,34 @@ def _mask_operand(mask: torch.Tensor | None, name: str, shape: tuple,
                          f"{shape}")
     if mask.device != device:
         raise ValueError(f"{name} is on {mask.device}, expected {device}")
+
+
+def _mask_operand(mask: torch.Tensor | None, name: str, shape: tuple,
+                  device: torch.device) -> torch.Tensor | None:
+    """A valid/mask operand as contiguous f32 on ``device`` (> 0 = live);
+    ``None`` stays ``None``."""
+    if mask is None:
+        return None
+    _check_mask(mask, name, shape, device)
     return mask.to(torch.float32).contiguous()
+
+
+# the dtypes the kernels read as they are, and their size in bytes
+_VALID_BYTES = {torch.bool: 1, torch.uint8: 1, torch.float32: 4}
+
+
+def _valid_operand(valid: torch.Tensor | None, m: int, device: torch.device
+                   ) -> tuple[torch.Tensor | None, int]:
+    """``valid`` [M] as the kernels read it, and its element size: bool
+    and uint8 (nonzero = live) and f32 (> 0 = live) as they are, so a
+    call launches no cast; any other dtype cast to f32 (> 0 = live, as
+    the plain version reads it)."""
+    if valid is None:
+        return None, 0
+    _check_mask(valid, "valid", (m,), device)
+    if valid.dtype not in _VALID_BYTES:
+        valid = valid.to(torch.float32)
+    return valid.contiguous(), _VALID_BYTES[valid.dtype]
 
 
 def _check_queries(queries: torch.Tensor, other: torch.Tensor,
@@ -135,10 +160,12 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _num_chunks(device: torch.device, q: int, m: int) -> int:
-    """How many chunks ``scored_topk`` splits each query's M into."""
-    want = -(-_BLOCKS_PER_SM * _sm_count(device) // q)
-    most = -(-m // _MIN_CHUNK)
-    return max(1, min(want, most))
+    """How many chunks ``scored_topk`` splits M into: its ceil(Q /
+    ``_QUERY_TILE``) query tiles times the chunks at most
+    ``_BLOCKS_PER_SM`` blocks an SM in all, none shorter than
+    ``_MIN_CHUNK`` candidates (but always one)."""
+    fit = _BLOCKS_PER_SM * _sm_count(device) // -(-q // _QUERY_TILE)
+    return max(1, min(fit, -(-m // _MIN_CHUNK)))
 
 
 def _gathered_chunks(device: torch.device, q: int, m: int) -> int:
@@ -147,6 +174,10 @@ def _gathered_chunks(device: torch.device, q: int, m: int) -> int:
     ``_GATHER_MIN_CHUNK`` candidates (but always one)."""
     fit = _GATHER_BLOCKS_PER_SM * _sm_count(device) // q
     return max(1, min(fit, -(-m // _GATHER_MIN_CHUNK)))
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +194,7 @@ def pairwise_scores(queries: torch.Tensor, database: torch.Tensor,
     _check_queries(queries, database, "database")
     check_tensor(database, "database", torch.float32, 2)
     q, m = queries.shape[0], database.shape[0]
-    valid = _mask_operand(valid, "valid", (m,), queries.device)
+    valid, valid_bytes = _valid_operand(valid, m, queries.device)
     if queries.device.type == "cpu":
         return pairwise_scores_ref(queries, database, valid, metric)
     out = torch.empty((q, m), dtype=torch.float32, device=queries.device)
@@ -171,9 +202,9 @@ def pairwise_scores(queries: torch.Tensor, database: torch.Tensor,
         return out
     lib = load_library()
     rc = lib.pairwise_scores_launch(
-        queries.data_ptr(), database.data_ptr(),
-        None if valid is None else valid.data_ptr(), out.data_ptr(), q, m,
-        queries.shape[1], _METRIC_CODE[metric], stream_of(queries))
+        queries.data_ptr(), database.data_ptr(), _ptr(valid), valid_bytes,
+        out.data_ptr(), q, m, queries.shape[1], _METRIC_CODE[metric],
+        stream_of(queries))
     check_launch(lib, rc, "pairwise_scores")
     pairwise_scores.launches += 1
     return out
@@ -235,10 +266,6 @@ def _topk_outputs(q: int, m: int, k: int, device, chunks: int):
     return out_ids, out_s, part_s, part_m
 
 
-def _ptr(t: torch.Tensor | None):
-    return None if t is None else t.data_ptr()
-
-
 def scored_topk(queries: torch.Tensor, database: torch.Tensor,
                 valid: torch.Tensor | None, k: int, *, metric: str = "l2",
                 fused: bool | None = None
@@ -252,7 +279,7 @@ def scored_topk(queries: torch.Tensor, database: torch.Tensor,
     _check_queries(queries, database, "database")
     check_tensor(database, "database", torch.float32, 2)
     q, m = queries.shape[0], database.shape[0]
-    valid = _mask_operand(valid, "valid", (m,), queries.device)
+    valid, valid_bytes = _valid_operand(valid, m, queries.device)
     if fused is None:
         fused = fused_topk_enabled(queries.device)
     if not _fused_route(fused, k, m):
@@ -267,9 +294,9 @@ def scored_topk(queries: torch.Tensor, database: torch.Tensor,
                                                    chunks)
     lib = load_library()
     rc = lib.scored_topk_launch(
-        queries.data_ptr(), database.data_ptr(), _ptr(valid), _ptr(part_s),
-        _ptr(part_m), out_s.data_ptr(), out_ids.data_ptr(), q, m,
-        queries.shape[1], _METRIC_CODE[metric], k, chunks,
+        queries.data_ptr(), database.data_ptr(), _ptr(valid), valid_bytes,
+        _ptr(part_s), _ptr(part_m), out_s.data_ptr(), out_ids.data_ptr(), q,
+        m, queries.shape[1], _METRIC_CODE[metric], k, chunks,
         stream_of(queries))
     check_launch(lib, rc, "scored_topk")
     scored_topk.launches += 1

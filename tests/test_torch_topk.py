@@ -1,14 +1,17 @@
 """The retrieval kernels' plain versions held against the JAX Pallas kernels
 of ``repro/kernels/topk_score.py``, run in interpret mode as
 ``tests/test_search.py`` runs them, plus ``masked_topk``, the wrappers' CPU
-route, the fused/staged routing and the input checks.
+route, the fused/staged routing, the input checks, and the text swaps by
+which ``tools/topk_variants.py`` builds the designs it times.
 
 The CUDA kernels themselves run only on the card: ``chip_smoke.py`` holds
 each one against its plain version there (and ``test_kernels_on_card``
 below, on a machine with a GPU).
 """
 
+import importlib.util
 import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -56,9 +59,13 @@ def _assert_scores(got, want):
     np.testing.assert_allclose(got[live], want[live], rtol=RTOL, atol=ATOL)
 
 
-# (Q, M, K, live share): Q = 1, M = 1, K = 1, K = 200, all masked
+# (Q, M, K, live share): Q = 1, M = 1, K = 1, K = 200, all masked; then
+# centroid-like databases (M of 1 to 10 with invalid rows) against Q off the
+# kernels' blocks of query rows (128) and query tiles (8), K = 1, 8, 9, 12
 SHAPES = [(1, 1, 1, 0.8), (4, 7, 3, 0.8), (9, 130, 5, 0.8),
-          (3, 40, 200, 0.8), (5, 33, 4, 0.0)]
+          (3, 40, 200, 0.8), (5, 33, 4, 0.0),
+          (129, 1, 1, 0.8), (130, 5, 8, 0.6), (9, 10, 9, 0.6),
+          (17, 7, 12, 0.5), (7, 3, 5, 0.5), (257, 10, 3, 0.7)]
 
 
 def test_neg_inf_is_the_reference_sentinel():
@@ -280,11 +287,26 @@ def test_build_compiles_every_source_and_caps_agree():
     assert "-shared" not in build.NVCC_FLAGS     # compile with -c, then link
 
 
+@pytest.mark.parametrize("variant", ["no_prefetch", "lockstep", "offer_n1"])
+def test_variant_tool_matches_the_source(variant):
+    """``tools/topk_variants.py`` builds each design it times against the
+    kernels by swapping exact text of ``topk_kernels.cu``: every swap still
+    finds its text in the source, once."""
+    path = Path(__file__).resolve().parents[1] / "tools" / "topk_variants.py"
+    spec = importlib.util.spec_from_file_location("topk_variants", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    as_built = tool.variant_source(tool.VARIANTS["as_built"])
+    assert as_built.startswith((build.CSRC / "topk_kernels.cu").read_text())
+    assert "variant_pairwise_launch" in as_built
+    assert tool.variant_source(tool.VARIANTS[variant]) != as_built
+
+
 def test_gathered_chunk_policy_and_shared_memory(monkeypatch):
     """``scored_topk_gathered`` splits a flush's M into chunks by its own
     policy (at most ``_GATHER_BLOCKS_PER_SM`` blocks an SM in all, chunks
     of at least ``_GATHER_MIN_CHUNK`` candidates, one chunk below that),
-    while ``scored_topk`` keeps its policy; and the gathered pass-1 block's
+    and the gathered pass-1 block's
     dynamic shared memory, one (score, position) entry per warp and list
     slot, stays within the 48 KiB a block gets without opting in, at the
     widest top-k."""
@@ -302,7 +324,6 @@ def test_gathered_chunk_policy_and_shared_memory(monkeypatch):
         # one wave of blocks, no chunk left empty
         assert q * chunks <= ts._GATHER_BLOCKS_PER_SM * 132
         assert (chunks - 1) * -(-m // chunks) < m
-    assert ts._num_chunks(dev, 64, 92482) == 17      # scored_topk's policy
     src = (build.CSRC / "topk_kernels.cu").read_text()
     warps = int(re.search(r"constexpr int kGatherWarps = (\d+);",
                           src).group(1))
@@ -313,19 +334,107 @@ def test_gathered_chunk_policy_and_shared_memory(monkeypatch):
     assert 8 * warps * ts.MAX_TOPK <= 48 * 1024
 
 
+def test_scored_topk_chunk_policy_and_resources(monkeypatch):
+    """``scored_topk`` splits M into chunks by its own policy: ceil(Q /
+    ``_QUERY_TILE``) query tiles times the chunks fit in one wave of
+    ``_BLOCKS_PER_SM`` blocks an SM, chunks of at least ``_MIN_CHUNK``
+    candidates, one chunk below that.  The tiles and chunks cover every
+    query and candidate once, for Q = 1, Q = QT +- 1 and M below one chunk
+    too; the wrapper's constants are the source's, the launch bounds pin
+    the blocks an SM, and the pass-1 block's dynamic shared memory (one
+    (score, position) entry per query of the tile, warp and list slot)
+    fits in the 48 KiB a block gets without opting in at the widest top-k.
+    """
+    monkeypatch.setattr(ts, "_sm_count", lambda device: 132)
+    dev = torch.device("cuda")               # only the SM count is read
+    qt = ts._QUERY_TILE
+    # the brute-force batches of chip_smoke.py: 64 queries of 92,482 rows
+    # (cl-100k-1d8-l5) and of 10,000 (sbm-10k)
+    assert ts._num_chunks(dev, 64, 92482) == 8
+    assert ts._num_chunks(dev, 64, 10000) == 5
+    assert ts._num_chunks(dev, 64, ts._MIN_CHUNK) == 1
+    assert ts._num_chunks(dev, 64, ts._MIN_CHUNK + 1) == 2
+    assert ts._num_chunks(dev, 1, 92482) == 46
+    assert ts._num_chunks(dev, 4096, 92482) == 1
+    for q in (1, qt - 1, qt, qt + 1, 64, 65, 4096):
+        for m in (1, 31, ts._MIN_CHUNK - 1, 10000, 92482):
+            chunks = ts._num_chunks(dev, q, m)
+            tiles = -(-q // qt)
+            if tiles <= ts._BLOCKS_PER_SM * 132:
+                assert tiles * chunks <= ts._BLOCKS_PER_SM * 132  # one wave
+            if m < ts._MIN_CHUNK:
+                assert chunks == 1
+            # every (query, candidate) in exactly one (tile, chunk) block
+            chunk_len = -(-m // chunks)
+            assert (chunks - 1) * chunk_len < m <= chunks * chunk_len
+            covered = [min(qt, q - t * qt) for t in range(tiles)]
+            assert min(covered) >= 1 and sum(covered) == q
+    src = (build.CSRC / "topk_kernels.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             src).group(1))
+
+    assert const("kQueryTile") == ts._QUERY_TILE
+    assert const("kTopkBlocksPerSm") == ts._BLOCKS_PER_SM
+    assert const("kQueryTile") <= const("kTopkWarps")  # warp i merges query i
+    assert "__launch_bounds__(kTopkWarps * kWarp, kTopkBlocksPerSm)" in src
+    assert ("(sizeof(float) + sizeof(int)) * kQueryTile * kTopkWarps * kk"
+            in src)
+    assert 8 * const("kQueryTile") * const("kTopkWarps") * ts.MAX_TOPK \
+        <= 48 * 1024
+    # Q = 1, Q = QT +- 1 and M below one chunk on the wrappers' CPU route
+    for q, m in ((1, 5), (qt - 1, 100), (qt + 1, 31), (65, 40)):
+        qv, x, _, valid, _, _ = _inputs(q + m, q, m, 3, integer=True)
+        got = ts.scored_topk(*_t(qv, x, valid), 10, fused=True)
+        want = ref.scored_topk_ref(*_t(qv, x, valid), 10)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_valid_dtypes_give_identical_results(metric):
+    """A bool, uint8 or f32 ``valid`` (and any other dtype, cast to f32)
+    gives identical scores and top-k; the first three reach the kernels as
+    they are, with their element size, so a call launches no cast."""
+    qv, x, _, valid, _, _ = _inputs(5, 9, 10, 5, live=0.6)
+    q_t, x_t, v_t = _t(qv, x, valid)
+    want = ref.pairwise_scores_ref(q_t, x_t, v_t, metric)
+    want_k = ref.scored_topk_ref(q_t, x_t, v_t, 4, metric)
+    for v, size in ((v_t, 4), (v_t > 0, 1), ((v_t > 0).to(torch.uint8), 1),
+                    ((v_t > 0).to(torch.int64), 4)):
+        operand, nbytes = ts._valid_operand(v, 10, v.device)
+        assert nbytes == size
+        if size == 1 or v.dtype == torch.float32:
+            assert operand.data_ptr() == v.data_ptr()          # no copy
+        torch.testing.assert_close(
+            ts.pairwise_scores(q_t, x_t, v, metric=metric), want, rtol=0,
+            atol=0)
+        for fused in (True, False):
+            torch.testing.assert_close(
+                ts.scored_topk(q_t, x_t, v, 4, metric=metric, fused=fused),
+                want_k, rtol=0, atol=0)
+    assert ts._valid_operand(None, 10, q_t.device) == (None, 0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric", METRICS)
 @pytest.mark.parametrize("k", [1, 10, 32])
-def test_kernels_on_card(metric, k):
-    """The four kernels against their plain versions on the card."""
+@pytest.mark.parametrize("q", [1, 64, 65])
+def test_kernels_on_card(metric, k, q):
+    """The four kernels against their plain versions on the card, with
+    Q = 1 and Q off a query tile, and ``pairwise_scores`` also at a
+    centroid shape (M = 5) with a bool ``valid``, as the index passes it."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
-    qv, x, cand, valid, mask, ids = _inputs(7, 64, 3000, 5, integer=True)
+    qv, x, cand, valid, mask, ids = _inputs(7, q, 3000, 5, integer=True)
     q_t, x_t, c_t, v_t, m_t, i_t = (t.cuda() for t in _t(
         qv, x, cand, valid, mask, ids))
+    cen, active = x_t[:5], v_t[:5] > 0
     for got, want in (
             (ts.pairwise_scores(q_t, x_t, v_t, metric=metric),
              ref.pairwise_scores_ref(q_t, x_t, v_t, metric)),
+            (ts.pairwise_scores(q_t, cen, active, metric=metric),
+             ref.pairwise_scores_ref(q_t, cen, active, metric)),
             (ts.gathered_scores(q_t, c_t, m_t, metric=metric),
              ref.gathered_scores_ref(q_t, c_t, m_t, metric)),
             (ts.scored_topk(q_t, x_t, v_t, k, metric=metric, fused=True),
