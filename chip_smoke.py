@@ -20,10 +20,12 @@ paths on the paper's 10k-node SBM and on the ``cl-100k-1d8-l5`` stand-in
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after.  Every kernel is timed with CUDA events beside its bound;
-``pairwise_scores`` at its three shapes (index build, a flush's probe, the
-staged brute force) with the kernels one call launches, both top-k
-kernels at other chunk counts and widths of top-k, and the device time of a
-fused flush.
+the two contraction kernels also per degree bucket with the L2 flushed,
+with the device work one bucket launch enqueues, and a warm fit's device
+time split by prep pass; ``pairwise_scores`` at its three shapes (index
+build, a flush's probe, the staged brute force) with the kernels one call
+launches, both top-k kernels at other chunk counts and widths of top-k, and
+the device time of a fused flush.
 The line before the last lists the seven kernels; the last line of standard
 output is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before those lines.  Details go to ``chiprun_out/chip_smoke.json``.
@@ -126,6 +128,32 @@ def gpu_ms(torch, fn, reps: int = 20, warmup: int = 2,
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(sleep_cycles)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+FLUSH_BYTES = 128 * 2**20       # more than twice the H100's 50 MB L2
+
+
+def gpu_ms_cold(torch, fn, flush, reps: int = 10, warmup: int = 2) -> float:
+    """``gpu_ms`` with the L2 flushed before each rep: outside the timed
+    window, ``flush`` (a ``FLUSH_BYTES`` buffer) is written and then read,
+    so L2 holds none of ``fn``'s inputs and no dirty line that would be
+    written back inside the window."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        flush.sum()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
         start.record()
         fn()
         end.record()
@@ -242,6 +270,94 @@ def edge_cases(torch, kernels, refs, errs):
     return n_cases
 
 
+def contraction_edge_cases(torch, gee_spmm, gee_spmm_fused, refs, errs,
+                           span: int) -> int:
+    """Both contraction kernels against their plain versions at the edges
+    of the launch geometry: widths 1, 3, 4, 5 (one slot a load past the
+    first), the largest segment row and the first span row (512, 516 at
+    16-byte loads), S - 1, S, S + 1 and 2S + 3 for the span S (one row split
+    into 1-3 blocks), the 65,536-slot hub width and a 262,144-slot row; K 1,
+    5, 8, 9, 32 and 33 (exact K, then class tiles), K = 1,024 (fused) and
+    1,500 (staged); diag and correlation on and off, ``rowlab = -1`` rows,
+    all-padding rows and an all-padding plane, R = 0, and a ``contrib`` whose
+    base is not 16-byte aligned (a contiguous view at an offset of one element).
+    Every launch is made twice and must give the same bits; integer-valued
+    planes, whose sums are exact, must give the plain version's bits."""
+    gee_spmm_ref, gee_spmm_fused_ref = refs
+    rng = np.random.default_rng(1)
+    dev = DEVICE
+    empty_i = torch.zeros(0, dtype=torch.int32, device=dev)
+    empty_f = torch.zeros(0, dtype=torch.float32, device=dev)
+    widths = (1, 3, 4, 5, 128, 512, 516, span - 1, span, span + 1,
+              2 * span + 3)
+    cases = [(37, d, k, False) for k in (1, 5, 8, 9, 32, 33) for d in widths]
+    cases += [(2, 65536, k, False) for k in (1, 5, 9)]
+    cases += [(2, 262144, k, False) for k in (1, 5, 9)]
+    cases += [(9, d, 1024, False) for d in (5, 516, 2 * span + 3)]
+    cases += [(9, d, 1500, False) for d in (5, 516, 2 * span + 3)]
+    cases += [(0, 4, 5, False), (0, 2 * span + 3, 5, False)]
+    cases += [(37, d, k, True) for d in (128, 516, 2048, 2 * span + 4)
+              for k in (5, 33)]
+
+    def twice(fn, *a, **kw):
+        got = fn(*a, **kw)
+        if not torch.equal(got, fn(*a, **kw)):
+            raise AssertionError(f"{fn.__name__}: two launches on the same "
+                                 f"input differ")
+        return got
+
+    def offset_view(t):
+        """A contiguous copy of ``t`` one element into a fresh buffer."""
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        buf[1:].copy_(t.reshape(-1))
+        return buf[1:].view(t.shape)
+
+    n_cases = 0
+    for r, d, k, misaligned in cases:
+        y_np, c_np = rand_planes(rng, max(r, 1), d, k)
+        if d == 65536:
+            y_np[:] = -1                     # an all-padding plane
+            c_np[:] = 0.0
+        y_np, c_np = y_np[:r], c_np[:r]
+        planes = [(torch.from_numpy(y_np).to(dev),
+                   torch.from_numpy(c_np).to(dev))]
+        ints = np.where(y_np >= 0, rng.integers(1, 4, y_np.shape), 0)
+        planes.append((planes[0][0], torch.from_numpy(
+            ints.astype(np.float32)).to(dev)))
+        if misaligned:
+            planes = [(y, offset_view(c)) for y, c in planes]
+            if planes[0][1].data_ptr() % 16 == 0:
+                raise AssertionError("offset view is 16-byte aligned")
+        for i, (y, c) in enumerate(planes):
+            got = twice(gee_spmm, y, c, k)
+            want = gee_spmm_ref(y, c, k)
+            errs["gee_spmm"].append(max_err(torch, got, want))
+            if i == 1 and not torch.equal(got, want):
+                raise AssertionError(f"gee_spmm R={r} D={d} K={k}: integer "
+                                     f"planes differ from plain")
+            n_cases += 1
+            if k > 1024:
+                continue
+            rowlab = torch.from_numpy(
+                rng.integers(-1, k, r).astype(np.int32)).to(dev)
+            dadd = torch.from_numpy(
+                rng.uniform(0.1, 1.0, r).astype(np.float32)).to(dev)
+            for rl, da in ((rowlab, dadd), (empty_i, empty_f)):
+                for cor in (True, False):
+                    got = twice(gee_spmm_fused, y, c, rl, da, k,
+                                correlation=cor)
+                    want = gee_spmm_fused_ref(y, c, rl, da, k,
+                                              correlation=cor)
+                    errs["gee_spmm_fused"].append(max_err(torch, got, want))
+                    if i == 1 and not cor and not rl.numel() \
+                            and not torch.equal(got, want):
+                        raise AssertionError(
+                            f"gee_spmm_fused R={r} D={d} K={k}: integer "
+                            f"planes differ from plain")
+                    n_cases += 1
+    return n_cases
+
+
 def row_norm_edge_cases(torch, row_norm, row_norm_ref, gee_spmm_fused, rng,
                         errs) -> int:
     """``row_norm`` against its plain version: K on both sides of every
@@ -292,6 +408,83 @@ def row_norm_edge_cases(torch, row_norm, row_norm_ref, gee_spmm_fused, rng,
                                              f"fused epilogue's bits")
                 n_cases += 1
     return n_cases
+
+
+def bucket_table(torch, fn, calls, bell, flush) -> dict:
+    """One contraction kernel on each bucket launch of a fit (``calls``, in
+    bucket order): real and padded rows (``bell``'s packing), width, bytes
+    (8 B a launched slot, 4 B an output, 8 B a row of rowlab/dadd), the
+    bytes bound and the time alone with L2 flushed before each rep.  Also
+    the device work one launch enqueues (``graph_nodes``) at the narrowest
+    and the widest bucket (a split row: ticket and workspace included):
+    anything but one kernel fails the run."""
+    rows = []
+    for (a, kw), b in zip(calls, bell.buckets):
+        r, d = a[0].shape
+        k = a[4] if len(a) > 4 else a[2]
+        if r != b.num_rows or d != b.width:
+            raise AssertionError(f"launch [{r}, {d}] is not bucket "
+                                 f"[{b.num_rows} real rows, {b.width}]")
+        nbytes = 8 * r * d + 4 * r * k + (8 * r if len(a) > 4 else 0)
+        rows.append({"R": r, "R_pad": int(b.row_ids.shape[0]), "D": d,
+                     "bytes": nbytes,
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "ms": gpu_ms_cold(torch, lambda: fn(*a, **kw), flush)})
+    per_launch = {}
+    for i in (0, len(calls) - 1):
+        a, kw = calls[i]
+        nodes = graph_nodes(torch, lambda: fn(*a, **kw))
+        if nodes != {"kernel": 1}:
+            raise AssertionError(f"{fn.__name__} on [{rows[i]['R']}, "
+                                 f"{rows[i]['D']}] enqueued {nodes}, not one "
+                                 f"kernel")
+        per_launch[rows[i]["D"]] = sum(nodes.values())
+    # the floor of a launch timed this way: an empty kernel, L2 flushed
+    return {"rows": rows, "kernels_per_launch": per_launch,
+            "empty_launch_ms": gpu_ms_cold(torch, lambda: torch.cuda._sleep(0),
+                                           flush)}
+
+
+# The functions the fused driver calls, whose device time a warm fit splits
+# into: the class weights, the degrees and the Laplacian scale, the planes,
+# the diag addend, the kernel and the residual fixup of degree-0 rows.
+PREP_PASSES = ("class_weight_inv", "bucketed_degrees", "inv_sqrt_degrees",
+               "laplacian_vals", "ell_planes", "_diag_addend",
+               "gee_spmm_fused", "apply_epilogue")
+
+
+def prep_passes(torch, module, fit) -> dict:
+    """A warm default fit's device time (ms) by pass: one fit runs with
+    each function of ``PREP_PASSES`` in the fused driver's ``module``
+    keeping its calls' arguments, then each pass's calls are replayed in
+    sequence and timed by ``gpu_ms`` behind a long sleep kernel, so no host
+    time shows (CUDA events around each pass inside the fit read the
+    kernel pass at 0.68 ms on cl-100k-1d8-l5, where its launches take 0.13:
+    host gaps).  What the passes leave of the fit's device time is the
+    scatter ``z[rows] = out``, the covered mask, the final ``where`` and
+    gaps."""
+    calls = {n: [] for n in PREP_PASSES}
+    originals = {n: getattr(module, n) for n in PREP_PASSES}
+
+    def keep(name, fn):
+        def call(*a, **kw):
+            calls[name].append((a, kw))
+            return fn(*a, **kw)
+        call.launches = 0        # the kernel wrapper counts into its name
+        return call
+
+    try:
+        for n in PREP_PASSES:
+            setattr(module, n, keep(n, originals[n]))
+        fit()
+    finally:
+        for n, fn in originals.items():
+            setattr(module, n, fn)
+    torch.cuda.synchronize()
+    return {n: gpu_ms(torch, lambda: [originals[n](*a, **kw)
+                                      for a, kw in calls[n]],
+                      reps=10, sleep_cycles=20_000_000)
+            for n in PREP_PASSES}
 
 
 def csr_operands(torch, edges, labels, k):
@@ -735,6 +928,50 @@ def chunk_sweep(torch, ts, name, a, kw) -> dict:
     return {"chunks": chunks, "chunk_sweep_ms": sweep, "ms_by_k": by_k}
 
 
+# cuGraphNodeGetType's CUgraphNodeType values (cuda.h)
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+                    4: "graph", 5: "empty", 6: "wait_event",
+                    7: "event_record", 10: "mem_alloc", 11: "mem_free"}
+
+
+def graph_nodes(torch, fn) -> dict:
+    """The device work one call of ``fn`` enqueues, by kind ({"kernel": 1,
+    "memset": ...}), read from a CUDA graph of one call through the driver
+    API.  ``torch.profiler`` dropped one of every four records of a
+    contraction kernel in this script, in every session; a graph holds
+    every node.  A warm-up call on the capture stream first makes what
+    persists between calls on a stream (its ticket counters) outside the
+    graph."""
+    import ctypes
+
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, stream=stream):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) != 0:
+        raise AssertionError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) != 0:
+        raise AssertionError("cuGraphGetNodes failed")
+    counts = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                 ctypes.byref(kind)) != 0:
+            raise AssertionError("cuGraphNodeGetType failed")
+        name = GRAPH_NODE_TYPES.get(kind.value, f"type {kind.value}")
+        counts[name] = counts.get(name, 0) + 1
+    del g
+    torch.cuda.synchronize()
+    return counts
+
+
 def kernels_per_call(torch, fn, calls: int = 4, tries: int = 5) -> tuple:
     """How many device kernels one call of ``fn`` launches, as
     ``torch.profiler`` records them over ``calls`` calls (after a warm-up
@@ -776,6 +1013,7 @@ def main() -> int:
     from repro_torch.graph.ell import edges_to_bucketed_ell
     from repro_torch.graph.sbm import sample_sbm
     from repro_torch.kernels import build, gee_fused, ops
+    from repro_torch.kernels import gee_spmm as gee_spmm_mod
     from repro_torch.kernels import row_norm as row_norm_mod
     from repro_torch.kernels.gee_fused import ENV_FUSED, gee_spmm_fused
     from repro_torch.kernels.gee_spmm import gee_spmm
@@ -840,8 +1078,13 @@ def main() -> int:
     n_cases = edge_cases(torch, (gee_spmm, row_norm, gee_spmm_fused),
                          (gee_spmm_ref, row_norm_ref, gee_spmm_fused_ref),
                          errs)
+    n_contraction = contraction_edge_cases(
+        torch, gee_spmm, gee_spmm_fused, (gee_spmm_ref, gee_spmm_fused_ref),
+        errs, gee_spmm_mod.SPAN)
     torch.cuda.synchronize()
-    say(f"phase 3a kernel vs plain, {n_cases} edge cases: "
+    say(f"phase 3a kernel vs plain, {n_cases} edge cases and "
+        f"{n_contraction} of the contraction's geometry (span "
+        f"{gee_spmm_mod.SPAN}), each launched twice, same bits: "
         + ", ".join(f"{k} {fmt_err(v)}" for k, v in errs.items()))
 
     # -- phase 3c: the retrieval kernels vs plain on edge cases --------------
@@ -964,6 +1207,7 @@ def main() -> int:
 
     # -- phase 6: timing ------------------------------------------------------
     timing = {}
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=DEVICE)
     for g in graphs:
         tg = {}
         for name, calls in captured[g].items():
@@ -983,6 +1227,12 @@ def main() -> int:
                                               for a, kw in calls])
             per_launch = [gpu_ms(torch, lambda: kernels[name](*a, **kw),
                                  reps=10) for a, kw in calls]
+            buckets = None
+            if name != "row_norm":
+                # the staged fit packs A + I (the default's diag-aug)
+                bell = prepared[g].bucketed_ell(name == "gee_spmm")
+                buckets = bucket_table(torch, kernels[name], calls, bell,
+                                       flush)
             t_plain = gpu_ms(torch, lambda: [plain[name](*a, **kw)
                                              for a, kw in calls], reps=10)
             lib_ms = None
@@ -1006,7 +1256,7 @@ def main() -> int:
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "shapes": [list(a[0].shape) for a, _ in calls],
-                "per_launch_ms": per_launch}
+                "per_launch_ms": per_launch, "buckets": buckets}
             if name == "gee_spmm":
                 tg[name]["library"] = "torch.sparse.mm(A_csr, W), cuSPARSE"
                 tg[name]["library_err"] = library_err
@@ -1033,6 +1283,9 @@ def main() -> int:
         pack = host_ms(torch, lambda: edges_to_bucketed_ell(edges), reps=3)
         tg["fit_transform_warm_ms"] = warm
         tg["fit_transform_warm_device_ms"] = warm_dev
+        tg["warm_fit_device_ms_by_pass"] = prep_passes(
+            torch, gee_fused, lambda: GEEEmbedder(num_classes=k).fit_transform(
+                prepared[g], labels_dev))
         tg["fit_transform_cold_ms"] = cold
         tg["host_packing_ms"] = pack
         tg["cold_fit_peak_bytes"] = peak
@@ -1045,8 +1298,19 @@ def main() -> int:
                         + (f", {LIBRARY[n]} {tg[n]['library_ms']:.4f}"
                            if tg[n]["library_ms"] is not None else "") + ")"
                         for n in kernels)
+            + "; per bucket, L2 flushed, ms (x bound): " + "; ".join(
+                f"{n} " + " ".join(
+                    f"[{b['R']}/{b['R_pad']}, {b['D']}] {b['ms']:.4f} "
+                    f"({b['ms'] / b['bound_ms']:.1f})" for b in
+                    tg[n]["buckets"]["rows"])
+                + f", kernels a launch {tg[n]['buckets']['kernels_per_launch']}"
+                + f", an empty launch {tg[n]['buckets']['empty_launch_ms']:.4f}"
+                for n in ("gee_spmm_fused", "gee_spmm"))
             + f"; fit_transform warm {warm:.2f} ms (device {warm_dev:.2f} "
-              f"ms), cold {cold:.1f} ms, "
+              f"ms; by pass " + ", ".join(
+                  f"{n} {t:.4f}" for n, t in
+                  tg["warm_fit_device_ms_by_pass"].items()) + "), "
+              f"cold {cold:.1f} ms, "
               f"host packing {pack:.1f} ms, peak memory of a cold fit "
               f"{peak / 2**20:.1f} MiB")
     report["timing"] = timing

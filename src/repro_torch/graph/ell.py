@@ -51,6 +51,14 @@ class ELLBucket:
     num_rows: int
     width: int
 
+    def real_rows(self) -> "ELLBucket":
+        """The bucket without its padding rows, which are its trailing
+        ``R_pad - num_rows`` rows: contiguous views of the leading rows."""
+        n = self.num_rows
+        return dataclasses.replace(self, cols=self.cols[:n],
+                                   vals=self.vals[:n],
+                                   row_ids=self.row_ids[:n])
+
 
 @dataclasses.dataclass(frozen=True)
 class BucketedELL:

@@ -37,13 +37,16 @@ _P = ctypes.c_void_p
 _SIGNATURES = {
     "gee_kernels_max_classes": ([], ctypes.c_int),
     "gee_kernels_error_string": ([ctypes.c_int], ctypes.c_char_p),
-    # ylab, contrib, out, R, D, K, stream
-    "gee_spmm_launch": ([_P, _P, _P, ctypes.c_int64, ctypes.c_int64,
-                         ctypes.c_int, _P], ctypes.c_int),
-    # ylab, contrib, rowlab, dadd, out, R, D, K, correlation, eps, stream
-    "gee_spmm_fused_launch": ([_P, _P, _P, _P, _P, ctypes.c_int64,
+    # ylab, contrib, out, ws, tickets, R, D, K, vec, lanes, span, stream
+    "gee_spmm_launch": ([_P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64,
+                         ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_int64, _P], ctypes.c_int),
+    # ylab, contrib, rowlab, dadd, out, ws, tickets, R, D, K, correlation,
+    # eps, vec, lanes, span, stream
+    "gee_spmm_fused_launch": ([_P, _P, _P, _P, _P, _P, _P, ctypes.c_int64,
                                ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_float, _P], ctypes.c_int),
+                               ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int64, _P], ctypes.c_int),
     # z, out, N, K, eps, stream
     "row_norm_launch": ([_P, _P, ctypes.c_int64, ctypes.c_int,
                          ctypes.c_float, _P], ctypes.c_int),

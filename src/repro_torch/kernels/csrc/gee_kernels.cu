@@ -1,41 +1,64 @@
 // Hand-written Hopper (sm_90a) kernels of the GEE main path.
 //
-// Three kernels, one build, a plain C interface loaded with ctypes
+// Three functions, one build, a plain C interface loaded with ctypes
 // (repro_torch/kernels/build.py):
 //
 //   gee_spmm        replaces src/repro/kernels/gee_spmm.py::_gee_spmm_kernel
 //                   z[r,k] = sum_d contrib[r,d] * [ylab[r,d] == k]
-//   row_norm        replaces src/repro/kernels/row_norm.py::_row_norm_kernel
-//                   row L2 normalization with the EPS_NORM clamp
 //   gee_spmm_fused  replaces src/repro/kernels/gee_fused.py::_gee_fused_kernel
 //                   gee_spmm, then z[r, rowlab_r] += dadd_r, then row_norm
+//   row_norm        replaces src/repro/kernels/row_norm.py::_row_norm_kernel
+//                   row L2 normalization with the EPS_NORM clamp
 //
-// Bound on the H100 (3.35 TB/s): all three move bytes and do a few operations
-// per byte.  gee_spmm and gee_spmm_fused read 8 B per ELL slot (int32 label,
-// f32 contribution) and write 4*R*K B (the fused kernel also reads 8 B per
-// row of rowlab/dadd); row_norm reads and writes 4*N*K B each.  At K = 5 and
-// N = 92,482 that is 3.7 MB, about one microsecond of bytes: row_norm is
-// bound by the latency of its load-reduce-store chains and by launch cost,
-// so its design is about how many chains are in flight (below).
+// Bound on the H100 (3.35 TB/s): bytes.  The contraction reads 8 B per ELL
+// slot (int32 label, f32 contribution) once and writes 4*R*K B (the fused
+// kernel also reads 8 B a row of rowlab/dadd); a slot costs K compare-selects,
+// far below the card's instruction rate.  row_norm reads and writes 4*N*K B
+// each; at K = 5 and N = 92,482 that is 3.7 MB, about one microsecond of
+// bytes, so it is bound by the latency of its load-reduce-store chains and by
+// launch cost (below).
 //
-// Design.  The TPU kernels walk the degree axis as a sequential grid axis and
-// revisit the output block.  Here blocks run unordered, so a row's whole
-// degree is reduced inside one block: a group of 1, 2, 4 or 8 warps owns one
-// row (more warps for wider rows, so the 65,536-wide hub rows of power-law
-// graphs are split over 256 threads while narrow buckets keep one warp a row
-// and many rows in flight).  Each thread keeps lane-private sums for a tile
-// of KT classes in registers and streams its slots once per class tile with
-// coalesced loads; no atomics, no cross-block accumulation, no output
-// revisit.  Rows are disjoint within and across buckets.  The design does
-// nothing more for the byte bound than read each slot once (for K <= 32) and
-// write each output once: the fused kernel saves the [N, K] round trip of
-// the staged epilogue by keeping the K-wide row in shared memory until the
-// diag term is added and the row normalized.
+// The contraction.  gee_spmm and gee_spmm_fused are the same two kernels: the
+// staged call is the fused one with no diag term and no norm.  The degree
+// buckets of a power-law graph run from tens of thousands of 128-slot rows to
+// a single 65,536-slot hub row, so the work is cut by slots, not by rows, and
+// the wrapper picks the geometry (repro_torch/kernels/gee_spmm.py::
+// launch_geometry; checked here):
 //
-// Sum order (deterministic, the same on every run): thread p of a row group
-// of G threads adds slots p, p+G, p+2G, ... in ascending order; each warp
-// then combines its lanes with an xor butterfly (every lane ends with the
-// same bits); the group's warps are combined in ascending warp order.
+//  * 16-byte loads.  ylab is read as int4 and contrib as float4 when D % 4 == 0
+//    and both bases are 16-byte aligned (every bucket); otherwise one slot a
+//    load (a flat plane of any width, a sliced view).  A lane issues kVec
+//    loads of each plane before it uses the first, so it keeps 2 * kVec loads
+//    of 16 B in flight.
+//  * Narrow rows (at most 32 * seg_loads loads, 2,048 slots; the instruction
+//    count is what costs there): gee_seg_kernel gives a row a segment of L
+//    lanes, L the power of two that leaves each lane about lane_loads loads
+//    (up to a warp), so a warp holds 32 / L rows.  A segment reduces its row with a segmented xor
+//    butterfly (log2 L shuffles a class): no shared memory, no block barrier.
+//  * Wide rows (latency is what costs there): gee_span_kernel gives a block of
+//    T <= 256 threads a span of S slots of one row.  A row wider than S is
+//    split into ceil(D / S) spans on as many blocks, so the 65,536-slot hub row
+//    runs on 16 SMs at S = 4,096, not on one, with every load of a thread in
+//    flight at once.  A split span writes its K partial sums to a workspace;
+//    the last of the row's blocks to arrive (a per-row ticket: __threadfence,
+//    then atomicAdd) adds the partials in span order, so the bits never depend
+//    on which block came last, and resets the ticket for the next launch on
+//    the stream; it loads kCombineLoads partials at once, so the 16 spans of
+//    the hub row cost one round trip to L2.  A row that fits one span is
+//    finished by its own block, with no workspace.  Each block loads its
+//    row's rowlab and dadd before its planes, off the critical path.
+//  * Exact K.  K <= 8 is a template constant, so K = 5 makes 5 compare-selects
+//    a slot; K > 8 walks class tiles of 16 or 32 (one read of the row a tile).
+//
+// Sum order (deterministic, the same on every run): a lane adds its slots in
+// ascending order; a segment or warp combines its lanes with an xor butterfly
+// (every lane ends with the same bits); a block combines its warps in
+// ascending warp order; a split row's spans are added in ascending span order.
+//
+// The fused epilogue adds dadd at rowlab and normalizes with row_norm's
+// arithmetic: row_l2_normalize_warp from shared memory, or, for K <= 8 in a
+// segment, the same butterfly over the squares computed as a tree in
+// registers, so the fused rows carry row_norm's bits.
 //
 // row_norm.  For K <= 32 a row is a segment of W lanes, W the power of two
 // >= K, so a warp holds 32 / W contiguous rows and loads them as one span;
@@ -55,6 +78,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -62,13 +86,20 @@ constexpr int kWarp = 32;
 constexpr int kBlockThreads = 256;
 constexpr int kBlockWarps = kBlockThreads / kWarp;
 constexpr unsigned kFullMask = 0xffffffffu;
-// The fused kernel keeps kBlockWarps rows of K floats in shared memory:
-// 8 * 1024 * 4 B = 32 KiB, inside the 48 KiB a block gets without opting in.
+// The fused kernel keeps up to kBlockWarps rows of K floats in shared memory
+// (class tiles): 8 * 1024 * 4 B = 32 KiB, inside the 48 KiB a block gets
+// without opting in.
 constexpr int kMaxClasses = 1024;
 // row_norm's grid for K <= 32: at most this many blocks of kBlockThreads an
 // SM, so that all are resident at once (8 * 8 = the SM's 64 warps, at <= 32
 // registers a thread).
 constexpr int kRowNormBlocksPerSm = 8;
+// Loads of each plane a lane issues before it uses the first.
+constexpr int kVec = 4;
+// K up to this is a template constant; past it, class tiles of 16 or 32.
+constexpr int kRegClasses = 8;
+// Partial sums of a split row the finishing block loads at once, a class.
+constexpr int kCombineLoads = 16;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -93,113 +124,257 @@ __device__ __forceinline__ void row_l2_normalize_warp(const float* row, float* o
   for (int k = lane; k < K; k += kWarp) out[k] = norm > 0.f ? row[k] / denom : 0.f;
 }
 
-// Lane-private sums of one class tile [k0, k0 + KT) over the slots this
-// thread owns (p, p + stride, ...).  A -1 (padding) slot matches no class.
-template <int KT>
-__device__ __forceinline__ void contract_tile(const int* __restrict__ ylab,
-                                              const float* __restrict__ contrib,
-                                              int64_t D, int k0, int p, int stride,
-                                              float (&acc)[KT]) {
-#pragma unroll
-  for (int t = 0; t < KT; ++t) acc[t] = 0.f;
-#pragma unroll 4
-  for (int64_t d = p; d < D; d += stride) {
-    const int y = __ldg(ylab + d) - k0;
-    const float c = __ldg(contrib + d);
-#pragma unroll
-    for (int t = 0; t < KT; ++t) acc[t] += (y == t) ? c : 0.f;
-  }
+__host__ __device__ constexpr int pow2_at_least(int k) {
+  int w = 1;
+  while (w < k) w *= 2;
+  return w;
 }
 
-// Combine one tile's lane-private sums over the row group and store the
-// finished sums at dst[k0 + t] (from the group's first warp, lane t).
-// Every thread of the block calls this the same number of times.
+// One slot into the sums of a class tile (y already relative to the tile's
+// first class): a -1 (padding) slot, or a class outside the tile, adds 0.
 template <int KT>
-__device__ __forceinline__ void group_reduce(float (&acc)[KT], float (*part)[KT],
-                                             int warp, int lane, int first_warp,
-                                             int wpr, float* dst, int k0, int K) {
+__device__ __forceinline__ void add_slot(float (&acc)[KT], int y, float c) {
 #pragma unroll
-  for (int t = 0; t < KT; ++t) acc[t] = warp_sum(acc[t]);
-  if (lane == 0) {
-#pragma unroll
-    for (int t = 0; t < KT; ++t) part[warp][t] = acc[t];
-  }
-  __syncthreads();
-  if (dst != nullptr && lane < KT && k0 + lane < K) {
-    float s = 0.f;
-    for (int j = 0; j < wpr; ++j) s += part[first_warp + j][lane];
-    dst[k0 + lane] = s;
-  }
-  __syncthreads();
+  for (int t = 0; t < KT; ++t) acc[t] += (y == t) ? c : 0.f;
 }
 
-struct RowGroup {
-  int warp, lane, wpr, first_warp, p;
-  int64_t r;
-  bool leader;  // the group's first warp of a real row
-  bool live;    // r < R
+// One load of both planes at load index e of a row: U = 4 slots (int4 and
+// float4) or U = 1 slot.
+template <int U>
+struct Load;
+
+template <>
+struct Load<4> {
+  int4 y;
+  float4 c;
+  __device__ __forceinline__ void get(const int* yr, const float* cr, int64_t e) {
+    y = __ldg(reinterpret_cast<const int4*>(yr) + e);
+    c = __ldg(reinterpret_cast<const float4*>(cr) + e);
+  }
+  template <int KT>
+  __device__ __forceinline__ void add(float (&acc)[KT], int k0) const {
+    add_slot<KT>(acc, y.x - k0, c.x);
+    add_slot<KT>(acc, y.y - k0, c.y);
+    add_slot<KT>(acc, y.z - k0, c.z);
+    add_slot<KT>(acc, y.w - k0, c.w);
+  }
 };
 
-__device__ __forceinline__ RowGroup row_group(int64_t R, int wpr) {
-  RowGroup g;
-  g.warp = threadIdx.x / kWarp;
-  g.lane = threadIdx.x % kWarp;
-  g.wpr = wpr;
-  const int group = g.warp / wpr;
-  g.first_warp = group * wpr;
-  g.p = (g.warp - g.first_warp) * kWarp + g.lane;
-  g.r = static_cast<int64_t>(blockIdx.x) * (kBlockWarps / wpr) + group;
-  g.live = g.r < R;
-  g.leader = g.live && g.warp == g.first_warp;
-  return g;
+template <>
+struct Load<1> {
+  int y;
+  float c;
+  __device__ __forceinline__ void get(const int* yr, const float* cr, int64_t e) {
+    y = __ldg(yr + e);
+    c = __ldg(cr + e);
+  }
+  template <int KT>
+  __device__ __forceinline__ void add(float (&acc)[KT], int k0) const {
+    add_slot<KT>(acc, y - k0, c);
+  }
+};
+
+// Lane-private sums of the class tile [k0, k0 + KT) over the loads first,
+// first + stride, ... < end of one row (load e holds slots [e*U, e*U + U)).
+// kVec loads of each plane are issued before the first is used.
+template <int KT, int U>
+__device__ __forceinline__ void lane_sums(const int* __restrict__ yr,
+                                          const float* __restrict__ cr, int64_t first,
+                                          int64_t end, int stride, int k0, float (&acc)[KT]) {
+#pragma unroll
+  for (int t = 0; t < KT; ++t) acc[t] = 0.f;
+  const int64_t step = static_cast<int64_t>(kVec) * stride;
+  for (int64_t e0 = first; e0 < end; e0 += step) {
+    Load<U> ld[kVec];
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) {
+      if (e0 + static_cast<int64_t>(v) * stride < end) ld[v].get(yr, cr, e0 + v * stride);
+    }
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) {
+      if (e0 + static_cast<int64_t>(v) * stride < end) ld[v].template add<KT>(acc, k0);
+    }
+  }
 }
 
-template <int KT>
-__global__ void __launch_bounds__(kBlockThreads)
-gee_spmm_kernel(const int* __restrict__ ylab, const float* __restrict__ contrib,
-                float* __restrict__ out, int64_t R, int64_t D, int K, int wpr) {
-  __shared__ float part[kBlockWarps][KT];
-  const RowGroup g = row_group(R, wpr);
-  const int64_t d_end = g.live ? D : 0;  // dead groups still join the syncs
-  const int64_t base = g.live ? g.r * D : 0;
-  float* dst = g.leader ? out + g.r * K : nullptr;
-  for (int k0 = 0; k0 < K; k0 += KT) {
-    float acc[KT];
-    contract_tile<KT>(ylab + base, contrib + base, d_end, k0, g.p, wpr * kWarp, acc);
-    group_reduce<KT>(acc, part, g.warp, g.lane, g.first_warp, wpr, dst, k0, K);
+// The fused epilogue on a row that every lane of its segment holds in
+// registers (K = KC <= 8): the diag term, then row_l2_normalize_warp's
+// arithmetic.  Its butterfly over the squares is computed as the same tree in
+// registers (the full warp's butterfly adds exact zeros in the steps past
+// pow2_at_least(KC)), so the bits are row_norm's.
+template <int KC>
+__device__ __forceinline__ void epilogue_regs(float (&z)[KC], int y, float a, int correlation,
+                                              float eps) {
+#pragma unroll
+  for (int t = 0; t < KC; ++t) {
+    if (t == y) z[t] += a;
   }
+  if (!correlation) return;
+  constexpr int W = pow2_at_least(KC);
+  float sq[W];
+#pragma unroll
+  for (int t = 0; t < W; ++t) sq[t] = t < KC ? fmaf(z[t], z[t], 0.f) : 0.f;
+#pragma unroll
+  for (int o = W / 2; o > 0; o >>= 1) {
+#pragma unroll
+    for (int t = 0; t < o; ++t) sq[t] += sq[t + o];
+  }
+  const float norm = sqrtf(sq[0]);
+  const float denom = fmaxf(norm, eps);
+#pragma unroll
+  for (int t = 0; t < KC; ++t) z[t] = norm > 0.f ? z[t] / denom : 0.f;
 }
 
-template <int KT>
-__global__ void __launch_bounds__(kBlockThreads)
-gee_spmm_fused_kernel(const int* __restrict__ ylab, const float* __restrict__ contrib,
-                      const int* __restrict__ rowlab, const float* __restrict__ dadd,
-                      float* __restrict__ out, int64_t R, int64_t D, int K, int wpr,
-                      int correlation, float eps) {
-  __shared__ float part[kBlockWarps][KT];
-  extern __shared__ float rows[];  // [kBlockWarps / wpr][K]
-  const RowGroup g = row_group(R, wpr);
-  const int64_t d_end = g.live ? D : 0;
-  const int64_t base = g.live ? g.r * D : 0;
-  float* row = rows + static_cast<int64_t>(g.first_warp / wpr) * K;
-  for (int k0 = 0; k0 < K; k0 += KT) {
-    float acc[KT];
-    contract_tile<KT>(ylab + base, contrib + base, d_end, k0, g.p, wpr * kWarp, acc);
-    group_reduce<KT>(acc, part, g.warp, g.lane, g.first_warp, wpr,
-                     g.leader ? row : nullptr, k0, K);
-  }
-  if (!g.leader) return;  // no block-wide sync below this point
-  if (rowlab != nullptr && g.lane == 0) {
-    const int y = rowlab[g.r];
-    if (y >= 0 && y < K) row[y] += dadd[g.r];
-  }
+// The fused epilogue on a row in shared memory, by one warp: the diag term a
+// at class y (lane 0's; none at y = -1), then row_l2_normalize_warp (without
+// correlation, a copy).
+__device__ __forceinline__ void epilogue_warp(float* row, float* orow, int K, int y, float a,
+                                              int correlation, float eps, int lane) {
+  if (lane == 0 && y >= 0 && y < K) row[y] += a;
   __syncwarp();
-  float* orow = out + g.r * K;
   if (correlation) {
-    row_l2_normalize_warp(row, orow, K, eps, g.lane);
+    row_l2_normalize_warp(row, orow, K, eps, lane);
   } else {
-    for (int k = g.lane; k < K; k += kWarp) orow[k] = row[k];
+    for (int k = lane; k < K; k += kWarp) orow[k] = row[k];
   }
+}
+
+// Rows of at most 32 * seg_loads loads: a segment of L lanes a row (L a power
+// of two <= 32; L = 32 for class tiles), so kBlockThreads / L rows a block.
+// KC <= 8: K == KC, the row in registers; KC = 16 or 32: class tiles of KC,
+// one warp a row, the row in shared memory when the epilogue runs.
+template <int KC, int U>
+__global__ void __launch_bounds__(kBlockThreads)
+gee_seg_kernel(const int* __restrict__ ylab, const float* __restrict__ contrib,
+               const int* __restrict__ rowlab, const float* __restrict__ dadd,
+               float* __restrict__ out, int64_t R, int64_t D, int K, int L, int correlation,
+               float eps) {
+  extern __shared__ float rows[];  // class tiles with an epilogue: [kBlockWarps][K]
+  const int lane = threadIdx.x % kWarp;
+  const int j = lane & (L - 1);
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * (kBlockThreads / L) + threadIdx.x / L;
+  const bool live = r < R;
+  const int64_t loads = live ? D / U : 0;  // dead segments still join the shuffles
+  const int64_t base = live ? r * D : 0;
+  const int* yr = ylab + base;
+  const float* cr = contrib + base;
+  const bool epi = rowlab != nullptr || correlation;
+  // the row's diag term, loaded ahead of the planes
+  const bool diag = live && rowlab != nullptr;
+  const int y = diag ? __ldg(rowlab + r) : -1;
+  const float a = diag ? __ldg(dadd + r) : 0.f;
+  if constexpr (KC <= kRegClasses) {
+    float z[KC];
+    lane_sums<KC, U>(yr, cr, j, loads, L, 0, z);
+    for (int o = L / 2; o > 0; o >>= 1) {
+#pragma unroll
+      for (int t = 0; t < KC; ++t) z[t] += __shfl_xor_sync(kFullMask, z[t], o, L);
+    }
+    if (!live) return;  // after the last shuffle
+    if (epi) epilogue_regs<KC>(z, y, a, correlation, eps);
+    float* orow = out + r * K;
+#pragma unroll
+    for (int t = 0; t < KC; ++t) {
+      if ((t & (L - 1)) == j) orow[t] = z[t];
+    }
+  } else {
+    float* row = rows + (threadIdx.x / kWarp) * K;
+    float* dst = epi ? row : out + r * K;
+    for (int k0 = 0; k0 < K; k0 += KC) {
+      float z[KC];
+      lane_sums<KC, U>(yr, cr, lane, loads, kWarp, k0, z);
+      float mine = 0.f;
+#pragma unroll
+      for (int t = 0; t < KC; ++t) {
+        const float s = warp_sum(z[t]);
+        if (t == lane) mine = s;
+      }
+      if (live && lane < KC && k0 + lane < K) dst[k0 + lane] = mine;
+    }
+    if (!live || !epi) return;  // whole warps: L == 32
+    __syncwarp();
+    epilogue_warp(row, out + r * K, K, y, a, correlation, eps, lane);
+  }
+}
+
+// Rows of more than 32 * seg_loads loads: a block of T = blockDim.x threads
+// (64, 128 or 256) takes a span of S slots of one row; block b is span
+// b % nspans of row b / nspans.  With nspans > 1, each span's sums go to
+// ws[b][K] and the row's last block to arrive finishes the row.
+template <int KC, int U>
+__global__ void __launch_bounds__(kBlockThreads)
+gee_span_kernel(const int* __restrict__ ylab, const float* __restrict__ contrib,
+                const int* __restrict__ rowlab, const float* __restrict__ dadd,
+                float* __restrict__ out, float* __restrict__ ws, int* __restrict__ tickets,
+                int64_t D, int K, int64_t S, int nspans, int correlation, float eps) {
+  __shared__ float part[kBlockWarps][KC];
+  __shared__ int last;
+  extern __shared__ float row[];  // [K] when the epilogue runs
+  const int tid = threadIdx.x;
+  const int T = blockDim.x;
+  const int warp = tid / kWarp, lane = tid % kWarp;
+  const int64_t b = blockIdx.x;
+  const int64_t r = b / nspans;
+  const int64_t span_loads = S / U;
+  const int64_t first = (b - r * nspans) * span_loads;
+  const int64_t end = first + span_loads < D / U ? first + span_loads : D / U;
+  const int* yr = ylab + r * D;
+  const float* cr = contrib + r * D;
+  const bool epi = rowlab != nullptr || correlation;
+  const bool split = nspans > 1;
+  // the row's diag term, loaded ahead of the planes (used by thread 0)
+  const bool diag = tid == 0 && rowlab != nullptr;
+  const int y = diag ? __ldg(rowlab + r) : -1;
+  const float a = diag ? __ldg(dadd + r) : 0.f;
+  float* dst = split ? ws + b * K : (epi ? row : out + r * K);
+  for (int k0 = 0; k0 < K; k0 += KC) {
+    float z[KC];
+    lane_sums<KC, U>(yr, cr, first + tid, end, T, k0, z);
+#pragma unroll
+    for (int t = 0; t < KC; ++t) z[t] = warp_sum(z[t]);
+    if (lane == 0) {
+#pragma unroll
+      for (int t = 0; t < KC; ++t) part[warp][t] = z[t];
+    }
+    __syncthreads();
+    if (tid < KC && k0 + tid < K) {
+      float v = part[0][tid];
+      for (int w = 1; w < T / kWarp; ++w) v += part[w][tid];
+      dst[k0 + tid] = v;
+    }
+    __syncthreads();
+  }
+  if (split) {
+    // The ticket: the last of the row's blocks to arrive adds the spans'
+    // partial sums, in span order.
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) last = atomicAdd(tickets + r, 1) == nspans - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    const float* p = ws + r * nspans * K;
+    float* to = epi ? row : out + r * K;
+    for (int k = tid; k < K; k += T) {
+      // kCombineLoads partials in flight at once, added in span order
+      float v = 0.f;
+      for (int i0 = 0; i0 < nspans; i0 += kCombineLoads) {
+        float q[kCombineLoads];
+#pragma unroll
+        for (int u = 0; u < kCombineLoads; ++u) {
+          q[u] = i0 + u < nspans ? __ldcg(p + static_cast<int64_t>(i0 + u) * K + k) : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < kCombineLoads; ++u) {
+          if (i0 + u < nspans) v += q[u];
+        }
+      }
+      to[k] = v;
+    }
+    if (tid == 0) tickets[r] = 0;  // ready for the next launch on this stream
+    __syncthreads();
+  }
+  if (epi && warp == 0) epilogue_warp(row, out + r * K, K, y, a, correlation, eps, lane);
 }
 
 // K > 32: one warp a row.
@@ -245,22 +420,6 @@ row_norm_seg_kernel(const float* __restrict__ z, float* __restrict__ out, int64_
   }
 }
 
-// Warps per row: one below 2,048 slots, then doubling with the width up to
-// a whole block (8 warps) from 8,192 slots, so a thread walks >= 64 slots.
-int warps_per_row(int64_t D) {
-  int wpr = 1;
-  while (wpr < kBlockWarps && D >= 2048LL * wpr) wpr *= 2;
-  return wpr;
-}
-
-// The class tile: the smallest of 4, 8, 16, 32 that covers K (32 beyond).
-int class_tile(int K) {
-  if (K <= 4) return 4;
-  if (K <= 8) return 8;
-  if (K <= 16) return 16;
-  return 32;
-}
-
 bool grid_for(int64_t R, int rows_per_block, unsigned* blocks) {
   const int64_t b = (R + rows_per_block - 1) / rows_per_block;
   if (b <= 0 || b > INT_MAX) return false;
@@ -268,19 +427,93 @@ bool grid_for(int64_t R, int rows_per_block, unsigned* blocks) {
   return true;
 }
 
-template <int KT>
-void launch_spmm(const int* ylab, const float* contrib, float* out, int64_t R,
-                 int64_t D, int K, int wpr, unsigned blocks, cudaStream_t s) {
-  gee_spmm_kernel<KT><<<blocks, kBlockThreads, 0, s>>>(ylab, contrib, out, R, D, K, wpr);
+// K <= kRegClasses: f(K) as a constant; past it, the class tile 16 or 32.
+template <typename F>
+void with_tile(int K, F&& f) {
+  static_assert(kRegClasses == 8, "one case a K up to kRegClasses");
+  switch (K) {
+    case 1: f(std::integral_constant<int, 1>{}); break;
+    case 2: f(std::integral_constant<int, 2>{}); break;
+    case 3: f(std::integral_constant<int, 3>{}); break;
+    case 4: f(std::integral_constant<int, 4>{}); break;
+    case 5: f(std::integral_constant<int, 5>{}); break;
+    case 6: f(std::integral_constant<int, 6>{}); break;
+    case 7: f(std::integral_constant<int, 7>{}); break;
+    case 8: f(std::integral_constant<int, 8>{}); break;
+    default:
+      if (K <= 16) {
+        f(std::integral_constant<int, 16>{});
+      } else {
+        f(std::integral_constant<int, 32>{});
+      }
+      break;
+  }
 }
 
-template <int KT>
-void launch_fused(const int* ylab, const float* contrib, const int* rowlab,
-                  const float* dadd, float* out, int64_t R, int64_t D, int K, int wpr,
-                  int correlation, float eps, unsigned blocks, size_t smem,
-                  cudaStream_t s) {
-  gee_spmm_fused_kernel<KT><<<blocks, kBlockThreads, smem, s>>>(
-      ylab, contrib, rowlab, dadd, out, R, D, K, wpr, correlation, eps);
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// The contraction with an optional epilogue (rowlab/dadd, correlation), at the
+// geometry the wrapper chose: lanes <= 32 takes gee_seg_kernel with `lanes`
+// lanes a row; lanes in {64, 128, 256} takes gee_span_kernel with blocks of
+// `lanes` threads over spans of `span` slots.  vec: 16-byte loads.
+int contraction_launch(const void* ylab, const void* contrib, const void* rowlab,
+                       const void* dadd, void* out, void* ws, void* tickets, int64_t R,
+                       int64_t D, int K, int correlation, float eps, int vec, int lanes,
+                       int64_t span, void* stream) {
+  if (R < 0 || D < 0 || K < 1) return cudaErrorInvalidValue;
+  if ((rowlab == nullptr) != (dadd == nullptr)) return cudaErrorInvalidValue;
+  const bool epi = rowlab != nullptr || correlation;
+  if (epi && K > kMaxClasses) return cudaErrorInvalidValue;
+  if (lanes < 1 || lanes > kBlockThreads || (lanes & (lanes - 1)) != 0) {
+    return cudaErrorInvalidValue;
+  }
+  if (vec && (D % 4 != 0 || !aligned16(ylab) || !aligned16(contrib))) {
+    return cudaErrorInvalidValue;
+  }
+  if (R == 0) return cudaSuccess;
+  const int* y = static_cast<const int*>(ylab);
+  const float* c = static_cast<const float*>(contrib);
+  const int* rl = static_cast<const int*>(rowlab);
+  const float* da = static_cast<const float*>(dadd);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lanes <= kWarp) {
+    if (K > kRegClasses && lanes != kWarp) return cudaErrorInvalidValue;
+    unsigned blocks;
+    if (!grid_for(R, kBlockThreads / lanes, &blocks)) return cudaErrorInvalidConfiguration;
+    const size_t smem = epi && K > kRegClasses ? sizeof(float) * kBlockWarps * K : 0;
+    with_tile(K, [&](auto kc) {
+      constexpr int KC = decltype(kc)::value;
+      if (vec) {
+        gee_seg_kernel<KC, 4><<<blocks, kBlockThreads, smem, s>>>(y, c, rl, da, o, R, D, K,
+                                                                  lanes, correlation, eps);
+      } else {
+        gee_seg_kernel<KC, 1><<<blocks, kBlockThreads, smem, s>>>(y, c, rl, da, o, R, D, K,
+                                                                  lanes, correlation, eps);
+      }
+    });
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (lanes < 2 * kWarp || span < 1 || (vec && span % 4 != 0)) return cudaErrorInvalidValue;
+  const int64_t nspans = D > span ? (D + span - 1) / span : 1;
+  if (nspans > INT_MAX / 2 || R > INT_MAX / nspans) return cudaErrorInvalidConfiguration;
+  if (nspans > 1 && (ws == nullptr || tickets == nullptr)) return cudaErrorInvalidValue;
+  const unsigned blocks = static_cast<unsigned>(R * nspans);
+  const size_t smem = epi ? sizeof(float) * K : 0;
+  float* w = static_cast<float*>(ws);
+  int* tk = static_cast<int*>(tickets);
+  const int ns = static_cast<int>(nspans);
+  with_tile(K, [&](auto kc) {
+    constexpr int KC = decltype(kc)::value;
+    if (vec) {
+      gee_span_kernel<KC, 4><<<blocks, lanes, smem, s>>>(y, c, rl, da, o, w, tk, D, K, span,
+                                                         ns, correlation, eps);
+    } else {
+      gee_span_kernel<KC, 1><<<blocks, lanes, smem, s>>>(y, c, rl, da, o, w, tk, D, K, span,
+                                                         ns, correlation, eps);
+    }
+  });
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -298,47 +531,22 @@ const char* gee_kernels_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int gee_spmm_launch(const void* ylab, const void* contrib, void* out, int64_t R,
-                    int64_t D, int K, void* stream) {
-  if (K < 1 || D < 0) return cudaErrorInvalidValue;
-  const int wpr = warps_per_row(D);
-  unsigned blocks;
-  if (!grid_for(R, kBlockWarps / wpr, &blocks)) return cudaErrorInvalidConfiguration;
-  const int* y = static_cast<const int*>(ylab);
-  const float* c = static_cast<const float*>(contrib);
-  float* o = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (class_tile(K)) {
-    case 4: launch_spmm<4>(y, c, o, R, D, K, wpr, blocks, s); break;
-    case 8: launch_spmm<8>(y, c, o, R, D, K, wpr, blocks, s); break;
-    case 16: launch_spmm<16>(y, c, o, R, D, K, wpr, blocks, s); break;
-    default: launch_spmm<32>(y, c, o, R, D, K, wpr, blocks, s); break;
-  }
-  return static_cast<int>(cudaGetLastError());
+// ws: [R, nspans, K] f32 and tickets: [>= R] int32, all zero, when a row is
+// split (lanes > 32 and D > span); otherwise either may be null.
+int gee_spmm_launch(const void* ylab, const void* contrib, void* out, void* ws, void* tickets,
+                    int64_t R, int64_t D, int K, int vec, int lanes, int64_t span,
+                    void* stream) {
+  return contraction_launch(ylab, contrib, nullptr, nullptr, out, ws, tickets, R, D, K, 0,
+                            0.f, vec, lanes, span, stream);
 }
 
 int gee_spmm_fused_launch(const void* ylab, const void* contrib, const void* rowlab,
-                          const void* dadd, void* out, int64_t R, int64_t D, int K,
-                          int correlation, float eps, void* stream) {
-  if (K < 1 || K > kMaxClasses || D < 0) return cudaErrorInvalidValue;
-  if ((rowlab == nullptr) != (dadd == nullptr)) return cudaErrorInvalidValue;
-  const int wpr = warps_per_row(D);
-  unsigned blocks;
-  if (!grid_for(R, kBlockWarps / wpr, &blocks)) return cudaErrorInvalidConfiguration;
-  const size_t smem = sizeof(float) * static_cast<size_t>(kBlockWarps / wpr) * K;
-  const int* y = static_cast<const int*>(ylab);
-  const float* c = static_cast<const float*>(contrib);
-  const int* rl = static_cast<const int*>(rowlab);
-  const float* da = static_cast<const float*>(dadd);
-  float* o = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (class_tile(K)) {
-    case 4: launch_fused<4>(y, c, rl, da, o, R, D, K, wpr, correlation, eps, blocks, smem, s); break;
-    case 8: launch_fused<8>(y, c, rl, da, o, R, D, K, wpr, correlation, eps, blocks, smem, s); break;
-    case 16: launch_fused<16>(y, c, rl, da, o, R, D, K, wpr, correlation, eps, blocks, smem, s); break;
-    default: launch_fused<32>(y, c, rl, da, o, R, D, K, wpr, correlation, eps, blocks, smem, s); break;
-  }
-  return static_cast<int>(cudaGetLastError());
+                          const void* dadd, void* out, void* ws, void* tickets, int64_t R,
+                          int64_t D, int K, int correlation, float eps, int vec, int lanes,
+                          int64_t span, void* stream) {
+  if (K > kMaxClasses) return cudaErrorInvalidValue;
+  return contraction_launch(ylab, contrib, rowlab, dadd, out, ws, tickets, R, D, K,
+                            correlation, eps, vec, lanes, span, stream);
 }
 
 int row_norm_launch(const void* z, void* out, int64_t N, int K, float eps, void* stream) {

@@ -2,16 +2,16 @@
 the fused drivers (port of ``repro/kernels/gee_fused.py``).
 
 Replaces the TPU kernel ``src/repro/kernels/gee_fused.py::_gee_fused_kernel``
-with the CUDA kernel ``gee_spmm_fused_kernel`` in ``csrc/gee_kernels.cu``:
-the ``gee_spmm`` contraction, then ``z[r, rowlab_r] += dadd_r`` (skipped at
-``rowlab = -1``; all of it off when ``rowlab`` is empty), then the
-``row_norm`` arithmetic when ``correlation``.
+with the contraction kernels of ``gee_spmm`` (``csrc/gee_kernels.cu``, the
+same launch geometry) and their epilogue: the contraction, then
+``z[r, rowlab_r] += dadd_r`` (skipped at ``rowlab = -1``; all of it off when
+``rowlab`` is empty), then the ``row_norm`` arithmetic when ``correlation``.
 
 Bound on the H100: bytes.  It reads 8 B per ELL slot (+ 8 B per row of
 ``rowlab``/``dadd``) and writes 4*R*K B, at 3.35 TB/s.  The K-wide row stays
-in shared memory from the contraction until it is normalized, so the
-staged path's extra [N, K] write and read (the separate ``row_norm``)
-disappear.
+in registers or shared memory from the contraction until it is normalized
+(a split row: in the block that finishes it), so the staged path's extra
+[N, K] write and read (the separate ``row_norm``) disappear.
 
 The drivers pack the *base* graph: diagonal augmentation folds in as
 degrees + 1 and the in-kernel addend ``dinv^2 * winv[y]``, so no self-loop
@@ -35,14 +35,14 @@ from repro_torch.core.gee import GEEOptions, class_weight_inv
 from repro_torch.graph.containers import ELL
 from repro_torch.graph.ell import (BucketedELL, bucketed_degrees,
                                    ell_planes, laplacian_vals)
-from repro_torch.kernels.build import (check_launch, check_tensor,
-                                      load_library, stream_of)
+from repro_torch.kernels.build import check_tensor
+from repro_torch.kernels.gee_spmm import launch_contraction
 from repro_torch.kernels.ref import gee_spmm_fused_ref
 
 ENV_FUSED = "REPRO_GEE_FUSED"
 
-# The largest K the fused kernel takes: it keeps up to 8 rows of K floats in
-# shared memory per block, 32 KiB at K = 1024, inside the 48 KiB a block
+# The largest K the fused kernel takes: a warp-a-row block keeps up to 8 rows
+# of K floats in shared memory, 32 KiB at K = 1024, inside the 48 KiB a block
 # gets without opting in (``kMaxClasses`` in csrc/gee_kernels.cu).
 MAX_CLASSES = 1024
 
@@ -89,19 +89,10 @@ def gee_spmm_fused(ylab: torch.Tensor, contrib: torch.Tensor,
     if ylab.device.type == "cpu":
         return gee_spmm_fused_ref(ylab, contrib, rowlab, dadd, num_classes,
                                   correlation=correlation, eps=EPS_NORM)
-    r, d = ylab.shape
-    out = torch.empty((r, num_classes), dtype=torch.float32,
-                      device=ylab.device)
-    if r == 0:
-        return out
-    lib = load_library()
-    rc = lib.gee_spmm_fused_launch(
-        ylab.data_ptr(), contrib.data_ptr(),
-        rowlab.data_ptr() if diag else None, dadd.data_ptr() if diag else None,
-        out.data_ptr(), r, d, num_classes, int(bool(correlation)), EPS_NORM,
-        stream_of(ylab))
-    check_launch(lib, rc, "gee_spmm_fused")
-    gee_spmm_fused.launches += 1
+    out = launch_contraction(ylab, contrib, rowlab, dadd, num_classes,
+                             correlation=correlation, eps=EPS_NORM)
+    if out.shape[0]:
+        gee_spmm_fused.launches += 1
     return out
 
 
@@ -157,19 +148,18 @@ def gee_fused_from_bucketed(bell: BucketedELL, labels: torch.Tensor,
                             opts: GEEOptions = GEEOptions()) -> torch.Tensor:
     """Fused GEE from a degree-bucketed packing of the *base* graph.
 
-    One fused launch per bucket: rows are disjoint across buckets, so each
-    real row's whole contraction and epilogue complete inside one launch,
-    and results scatter back by assignment (never addition).  Degree-0 rows
-    live in no bucket; the residual fixup applies the shared epilogue to
-    them.
+    One fused launch per bucket, on its real rows only (the bucket's
+    padding rows are its trailing ones): rows are disjoint across buckets,
+    so each row's whole contraction and epilogue complete inside one
+    launch, and results scatter back by assignment (never addition).
+    Degree-0 rows live in no bucket; the residual fixup applies the shared
+    epilogue to them.
     """
     n = bell.num_nodes
     dev = bell.buckets[0].cols.device if bell.buckets else (
         torch.as_tensor(labels).device)
     labels = torch.as_tensor(labels).to(device=dev, dtype=torch.int32)
     winv = class_weight_inv(labels, num_classes)
-    minus1 = torch.full((1,), -1, dtype=torch.int32, device=dev)
-    labels_ext = torch.cat([labels, minus1])   # dump row n -> label -1
 
     if opts.laplacian:
         deg = bucketed_degrees(bell, dev)
@@ -178,24 +168,19 @@ def gee_fused_from_bucketed(bell: BucketedELL, labels: torch.Tensor,
         dinv = inv_sqrt_degrees(deg)
     else:
         dinv = torch.ones(n, dtype=torch.float32, device=dev)
-    dinv_ext = torch.cat([dinv, torch.zeros(1, dtype=torch.float32,
-                                            device=dev)])
 
-    z = torch.zeros((n + 1, num_classes), dtype=torch.float32, device=dev)
-    covered = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+    z = torch.zeros((n, num_classes), dtype=torch.float32, device=dev)
+    covered = torch.zeros(n, dtype=torch.bool, device=dev)
     for b in bell.buckets:
+        b = b.real_rows()
         rows = b.row_ids.long()
         vals = laplacian_vals(b, dinv) if opts.laplacian else b.vals
         ylab, contrib = ell_planes(b.cols, vals, labels, winv)
-        rowlab, dadd = _diag_addend(labels_ext[rows], winv, dinv_ext[rows],
+        rowlab, dadd = _diag_addend(labels[rows], winv, dinv[rows],
                                     opts.diag_aug)
-        out = gee_spmm_fused(ylab, contrib, rowlab, dadd, num_classes,
-                             correlation=opts.correlation)
-        # disjoint real rows; bucket-padding rows all target the dump row
-        # with all-zero planes and a -1 rowlab, so they write exact zeros
-        z[rows] = out
+        z[rows] = gee_spmm_fused(ylab, contrib, rowlab, dadd, num_classes,
+                                 correlation=opts.correlation)
         covered[rows] = True
-    z = z[:n]
 
     # Residual fixup: degree-0 rows (no bucket) still owe the diag-aug
     # term and the row norm -- the identical shared-epilogue arithmetic.
@@ -203,7 +188,7 @@ def gee_fused_from_bucketed(bell: BucketedELL, labels: torch.Tensor,
         z_res = apply_epilogue(
             torch.zeros((n, num_classes), dtype=torch.float32, device=dev),
             labels, winv, dinv, opts=opts, impl="torch")
-        z = torch.where(covered[:n, None], z, z_res)
+        z = torch.where(covered[:, None], z, z_res)
     return z
 
 

@@ -4,9 +4,8 @@
 
 Two packings feed the contraction: one flat [N_pad, D_max] plane
 (``gee_cuda_from_ell``) or the degree buckets (``gee_cuda_from_bucketed``,
-one launch per bucket, scattered back into an [N+1]-row accumulator whose
-row N is the dump row of bucket padding).  Correlation then runs the
-``row_norm`` kernel.
+one launch per bucket on its real rows, scattered back by assignment).
+Correlation then runs the ``row_norm`` kernel.
 
 Diagonal augmentation is never silently dropped: the ``*_from_*`` drivers
 take a packing of the graph as it is and raise ``ValueError`` when
@@ -62,7 +61,9 @@ def gee_cuda_from_bucketed(bell: BucketedELL, labels: torch.Tensor,
                            num_classes: int,
                            opts: GEEOptions = GEEOptions()) -> torch.Tensor:
     """GEE from a degree-bucketed ELL tiling: one ``gee_spmm`` launch per
-    bucket, partial outputs added into the [N+1]-row accumulator."""
+    bucket on its real rows (the bucket's padding rows are its trailing
+    ones); rows are disjoint across buckets, so outputs scatter back by
+    assignment."""
     _reject_diag_aug(opts)
     n = bell.num_nodes
     dev = bell.buckets[0].cols.device if bell.buckets else (
@@ -73,13 +74,12 @@ def gee_cuda_from_bucketed(bell: BucketedELL, labels: torch.Tensor,
     dinv = inv_sqrt_degrees(bucketed_degrees(bell, dev)) if opts.laplacian \
         else None
 
-    z = torch.zeros((n + 1, num_classes), dtype=torch.float32, device=dev)
+    z = torch.zeros((n, num_classes), dtype=torch.float32, device=dev)
     for b in bell.buckets:
+        b = b.real_rows()
         vals = b.vals if dinv is None else laplacian_vals(b, dinv)
         ylab, contrib = ell_planes(b.cols, vals, labels, winv)
-        z.index_add_(0, b.row_ids.long(),
-                     gee_spmm(ylab, contrib, num_classes))
-    z = z[:n]
+        z[b.row_ids.long()] = gee_spmm(ylab, contrib, num_classes)
     if opts.correlation:
         z = row_l2_normalize(z.contiguous(), impl="cuda")
     return z

@@ -81,6 +81,44 @@ def test_gee_spmm_fused_plain_matches_pallas(n, d, k, with_rowlab,
                                rtol=1e-5)
 
 
+# Wide rows, as the split contraction takes them: R <= 3, rows of 4,100 and
+# 8,192 slots (one and two spans of the kernels' 4,096), K exact and past
+# one tile; row 0 of every plane is all padding.
+WIDE = [(3, 4100, 1), (3, 4100, 5), (3, 4100, 9), (2, 8192, 1),
+        (2, 8192, 5), (2, 8192, 9)]
+
+
+@pytest.mark.parametrize("n,d,k", WIDE)
+def test_gee_spmm_plain_matches_pallas_wide_rows(n, d, k):
+    ylab, contrib, _, _ = _planes(d + k, n, d, k)
+    want = j_gee_spmm(jnp.asarray(ylab), jnp.asarray(contrib), k,
+                      interpret=True)
+    got = ref.gee_spmm_ref(torch.from_numpy(ylab), torch.from_numpy(contrib),
+                           k)
+    assert not got[0].any()                    # the all-padding row
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("n,d,k", WIDE)
+@pytest.mark.parametrize("with_rowlab", [True, False])
+@pytest.mark.parametrize("correlation", [True, False])
+def test_gee_spmm_fused_plain_matches_pallas_wide_rows(n, d, k, with_rowlab,
+                                                       correlation):
+    ylab, contrib, rowlab, dadd = _planes(d * k + n, n, d, k)
+    if not with_rowlab:
+        rowlab, dadd = np.zeros(0, np.int32), np.zeros(0, np.float32)
+    want = j_gee_spmm_fused(jnp.asarray(ylab), jnp.asarray(contrib),
+                            jnp.asarray(rowlab), jnp.asarray(dadd), k,
+                            correlation=correlation, interpret=True)
+    got = ref.gee_spmm_fused_ref(
+        torch.from_numpy(ylab), torch.from_numpy(contrib),
+        torch.from_numpy(rowlab), torch.from_numpy(dadd), k,
+        correlation=correlation)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=1e-5)
+
+
 def test_wrappers_take_plain_version_on_cpu():
     ylab, contrib, rowlab, dadd = _planes(0, 37, 20, 6)
     y, c = torch.from_numpy(ylab), torch.from_numpy(contrib)
