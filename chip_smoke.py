@@ -16,7 +16,18 @@ paths on the paper's 10k-node SBM and on the ``cl-100k-1d8-l5`` stand-in
 * vertex-similarity retrieval (``build_index``, then 4,096 vertex-id queries
   through ``GEEQueryService`` in flushes of 64, fused and staged, at the
   default nprobe and at full probe, and brute force; l2 and cosine), with
-  full probe held equal to brute force and fused to staged.
+  full probe held equal to brute force and fused to staged;
+* out-of-core streaming (phase 10): ``synth_to_disk`` writes
+  ``cl-100k-1d8-l5`` (10 M undirected entries) and a scale file (2 M nodes,
+  50 M entries) as ``.geeb``; ``fit_transform_file`` streams them through
+  the pinned-staging prefetch and the window fold, held against the
+  in-memory ``cuda`` fit of ``load_file`` under all 8 settings (and SciPy),
+  prefetch depth 0 against depth 2, the scale file against the in-memory
+  ``sparse_torch`` fit, with its time, edges per second, the device's busy
+  share, the fold's time per window and the peak device memory under a
+  stated bound; retrieval over the streamed embedding; and the
+  ``gee_run`` / ``gee_search --edge-file`` entry points in processes of
+  their own.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after.  Every kernel is timed with CUDA events beside its bound;
@@ -69,6 +80,9 @@ REPLACES = {
 }
 # the one PyTorch call timed beside a kernel as its yardstick (phase 6)
 LIBRARY = {"row_norm": "F.normalize", "gee_spmm": "torch.sparse.mm"}
+# the streaming path (phase 10): a file of 2 M nodes, 50 M undirected
+# entries and 5 classes (48 windows of the default 1,048,576 entries)
+SCALE_SPEC = ("scale-2m-50m", 2_000_000, 50_000_000, 5)
 # the retrieval path (phase 8): vertex-id queries, flushes of 64, top 10
 N_QUERIES = 4096
 FLUSH = 64
@@ -997,6 +1011,311 @@ def kernels_per_call(torch, fn, calls: int = 4, tries: int = 5) -> tuple:
                          f"a call in {tries} sessions")
 
 
+def streaming_phase(torch, card, all_kernels, replay, cl_spec,
+                    scale_spec) -> dict:
+    """Phase 10: out-of-core streaming at full size.  ``cl_spec`` is the
+    Table 2 stand-in held against the in-memory fits, ``scale_spec`` the
+    file held against ``sparse_torch`` and timed; ``replay`` is phase 8's
+    query replay.  Counts every kernel's launches on the streaming path
+    alone: each streamed call runs with every count set to 0 just before it
+    and read just after, so the in-memory and SciPy fits it is held against
+    add nothing.  Prints one line; returns the numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.api import GEEEmbedder
+    from repro_torch.core.chunked import gee_chunked
+    from repro_torch.core.fold import fold_degrees, fold_z
+    from repro_torch.core.gee import (ALL_OPTION_SETTINGS, GEEOptions,
+                                      class_weight_inv, gee_scipy)
+    from repro_torch.core.plan import GEEPlan, PreparedGraph
+    from repro_torch.graph.datasets import load_file, synth_to_disk
+    from repro_torch.graph.io import (DEFAULT_CHUNK_EDGES, ChunkedEdgeList,
+                                      open_edge_list)
+    from repro_torch.graph.prefetch import (DEFAULT_PREFETCH_DEPTH,
+                                            prefetch_windows)
+    from repro_torch.launch.gee_search import recall_at_k
+
+    all_on, all_off = GEEEmbedder(num_classes=1).options, GEEOptions()
+    stream = {"card": card}
+    stream_launches = dict.fromkeys(all_kernels, 0)
+
+    def on_path(fn):
+        """Run one call of the streaming path, counting its launches."""
+        for k_fn in all_kernels.values():
+            k_fn.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        for name, k_fn in all_kernels.items():
+            stream_launches[name] += k_fn.launches
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the Table 2 stand-in and the scale file, one entry per undirected
+        # edge, written by the port's own writer
+        cl_path = os.path.join(tmp, "cl.geeb")
+        t0 = time.perf_counter()
+        synth_to_disk(cl_spec, cl_path, seed=0)
+        stream["cl_write_s"] = time.perf_counter() - t0
+        cl_file = load_file(cl_path)           # materialized on the card
+        cl_k = cl_file.spec.num_classes
+        cl_prep = PreparedGraph(cl_file.edges)
+        cl_labels = cl_file.labels
+        cl_windows = open_edge_list(cl_path).num_windows
+
+        t0 = time.perf_counter()
+        parity = {}
+        for opts in ALL_OPTION_SETTINGS:
+            z_s = on_path(lambda: GEEEmbedder(
+                num_classes=cl_k, options=opts).fit_transform_file(cl_path))
+            z_m = GEEEmbedder(num_classes=cl_k, options=opts,
+                              backend="cuda").fit_transform(cl_prep,
+                                                            cl_labels)
+            if z_s.shape != (cl_file.spec.num_nodes, cl_k) \
+                    or not bool(torch.isfinite(z_s).all()):
+                raise AssertionError(f"streamed {opts.tag()}: bad output")
+            parity[opts.tag()] = max_err(torch, z_s, z_m)
+        # the default setting against the host SciPy reference
+        src, dst, w = cl_file.edges.valid_arrays()
+        z_host = gee_scipy(src, dst, w, cl_labels, cl_k, all_on)
+        z_s = on_path(lambda: GEEEmbedder(
+            num_classes=cl_k).fit_transform_file(cl_path))
+        scipy_stream = max_err(torch, z_s.cpu(), torch.from_numpy(z_host))
+        # prefetch depths 0 and 2 on the same file
+        by_depth = {d: on_path(lambda: gee_chunked(
+            open_edge_list(cl_path), cl_labels, cl_k, all_on,
+            prefetch_windows=d)) for d in (0, DEFAULT_PREFETCH_DEPTH)}
+        depth_err = max_err(torch, by_depth[0],
+                            by_depth[DEFAULT_PREFETCH_DEPTH])
+        z_m = GEEEmbedder(num_classes=cl_k, backend="cuda").fit_transform(
+            cl_prep, cl_labels)
+        depth_vs_mem = [max_err(torch, z, z_m) for z in by_depth.values()]
+        # retrieval over the streamed embedding: the index build, replays at
+        # the default nprobe and at full probe, and brute force
+        emb = on_path(lambda: GEEEmbedder(num_classes=cl_k).fit_file(
+            cl_path))
+        s_index = on_path(emb.build_index)
+        rows = np.random.default_rng(11).integers(
+            0, cl_file.spec.num_nodes, N_QUERIES)
+        ids_d, sc_d, _, _ = on_path(lambda: replay(s_index, rows))
+        ids_f, sc_f, _, _ = on_path(lambda: replay(
+            s_index, rows, nprobe=s_index.num_cells))
+        zq = s_index.z[torch.from_numpy(rows).to(DEVICE)]
+        got = on_path(lambda: [
+            s_index.search(zq[lo:lo + FLUSH], TOP_K, brute_force=True)
+            for lo in range(0, zq.shape[0], FLUSH)])
+        ids_b = torch.cat([i for i, _ in got]).cpu().numpy()
+        sc_b = torch.cat([s_ for _, s_ in got]).cpu().numpy()
+        if not np.array_equal(sc_f, sc_b):
+            raise AssertionError("streamed index: full probe != brute force")
+        s_recall = recall_at_k(ids_d, sc_d, ids_b, sc_b)
+        s_nprobe = s_index.nprobe
+        torch.cuda.synchronize()
+        stream["cl_s"] = time.perf_counter() - t0
+        stream.update(cl_parity=parity, cl_scipy=scipy_stream,
+                      cl_depth_err=depth_err, cl_depth_vs_mem=depth_vs_mem,
+                      cl_windows=cl_windows, cl_recall=s_recall,
+                      cl_nprobe=s_nprobe)
+        del cl_prep, cl_file, z_s, z_m, by_depth, emb, s_index
+
+        # the scale file: 2,000,000 nodes, 50,000,000 undirected entries
+        spec = scale_spec
+        sc_path = os.path.join(tmp, "scale.geeb")
+        t0 = time.perf_counter()
+        synth_to_disk(spec, sc_path, seed=0)
+        stream["scale_write_s"] = time.perf_counter() - t0
+        sc_src = open_edge_list(sc_path)
+        sc_labels = np.load(sc_path + ".labels.npy")
+        n, k, window = spec.num_nodes, spec.num_classes, sc_src.window_edges
+        depth = DEFAULT_PREFETCH_DEPTH
+        # what the streamed fit may hold on the card, whatever E is: Z's
+        # float64 accumulator, its f32 rounding and the epilogue's two
+        # [N, K] results (5 f32 units), six [N] f32 units (labels, the
+        # float64 degrees, their f32 rounding, dinv), the windows in flight
+        # (the one folded, ``depth`` queued, one being staged and one more
+        # the reader may hold; 12 B an entry), a both-directions window's
+        # fold temporaries (<= 160 B an entry) and 64 MiB of allocator
+        # rounding
+        bound = (5 * 4 * n * k + 6 * 4 * n + (depth + 3) * 12 * window
+                 + 2 * window * 160 + (64 << 20))
+
+        def streamed(opts):
+            return on_path(lambda: gee_chunked(sc_src, sc_labels, k, opts))
+
+        scale = {"windows": sc_src.num_windows, "window": window,
+                 "bound_bytes": bound}
+        for opts in (all_off, all_on):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            z_s = streamed(opts)
+            torch.cuda.synchronize()
+            peak_s = torch.cuda.max_memory_allocated() - base
+            if peak_s >= bound:
+                raise AssertionError(f"streamed peak {peak_s} B >= bound "
+                                     f"{bound} B")
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                streamed(opts)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            t_med = float(np.median(times))
+            del z_s
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            sc_mem = PreparedGraph(load_file(sc_path).edges)
+            z_m = GEEPlan.build(sc_mem, k, opts,
+                                backend="sparse_torch").execute(sc_labels)
+            torch.cuda.synchronize()
+            peak_m = torch.cuda.max_memory_allocated() - base
+            err = max_err(torch, streamed(opts), z_m)
+            del sc_mem, z_m
+            scale[opts.tag()] = {
+                "max_err": err, "host_ms_median_of_3": t_med * 1e3,
+                "host_ms": [t * 1e3 for t in times],
+                "edges_per_s": 2 * spec.num_edges / t_med,
+                "peak_bytes_streamed": peak_s,
+                "peak_bytes_in_memory": peak_m}
+
+        # where a streamed fit's time goes (no options, one pass, host
+        # clock, median of 3): the same fit with synchronous copies, the
+        # pipeline alone (read, ring fill, copy; nothing folded) and the
+        # fold alone over the whole file already on the card
+        def ingest():
+            for _ in prefetch_windows(sc_src, depth, device=DEVICE).windows():
+                pass
+
+        resident = ChunkedEdgeList(
+            src=torch.from_numpy(np.asarray(sc_src.src)).to(DEVICE),
+            dst=torch.from_numpy(np.asarray(sc_src.dst)).to(DEVICE),
+            weight=torch.from_numpy(np.asarray(sc_src.weight)).to(DEVICE),
+            num_nodes=n, undirected=True)
+        scale["split_ms"] = {
+            "depth_0": host_ms(torch, lambda: gee_chunked(
+                sc_src, sc_labels, k, all_off, prefetch_windows=0), 3),
+            "pipeline_alone": host_ms(torch, ingest, 3),
+            "fold_alone_resident": host_ms(torch, lambda: gee_chunked(
+                resident, sc_labels, k, all_off), 3)}
+        del resident
+
+        # the device's busy share over one streamed fit (union of the
+        # kernels' and copies' intervals that torch.profiler records, over
+        # the host-clock time of the fit under the profiler)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            streamed(all_on)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        busy_us, end = 0.0, float("-inf")
+        for lo, hi in spans:
+            if hi > end:
+                busy_us += hi - max(lo, end)
+                end = hi
+        scale["busy_share_profiler"] = busy_us / wall_us
+        scale["profiler_device_records"] = len(spans)
+
+        # the fold's device time for one window, by CUDA events: the H2D
+        # copy from pinned memory, the degree fold, the class fold
+        w0 = next(iter(sc_src.windows()))
+        pinned = [t.pin_memory() for t in (w0.src, w0.dst, w0.weight)]
+        dev = [t.to(DEVICE) for t in pinned]
+        lab = torch.from_numpy(sc_labels).to(DEVICE)
+        winv = class_weight_inv(lab, k)
+        dinv = torch.rand(n, device=DEVICE)
+        deg = torch.zeros(n, device=DEVICE)
+        z = torch.zeros(n * k, device=DEVICE)
+        scale["window_copy_ms"] = gpu_ms(
+            torch, lambda: [t.to(DEVICE, non_blocking=True) for t in pinned])
+        scale["window_fold_degrees_ms"] = gpu_ms(
+            torch, lambda: fold_degrees(deg, *dev, undirected=True))
+        scale["window_fold_z_ms"] = gpu_ms(
+            torch, lambda: fold_z(z, *dev, lab, winv, dinv, num_classes=k,
+                                  undirected=True))
+        # all on: two passes, so two copies a window
+        scale["busy_share_events"] = (
+            sc_src.num_windows * (2 * scale["window_copy_ms"]
+                                  + scale["window_fold_degrees_ms"]
+                                  + scale["window_fold_z_ms"])
+            / scale[all_on.tag()]["host_ms_median_of_3"])
+        stream["scale"] = scale
+
+        # the entry points, each in a process of its own
+        env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.gee_run",
+             "--edge-file", cl_path, "--lap", "--diag", "--cor", "--verify"],
+            capture_output=True, text=True, timeout=600, env=env, cwd=REPO)
+        if run.returncode != 0 or \
+                "0 entries off the row tolerance: ok" not in run.stdout:
+            raise AssertionError(f"gee_run --edge-file failed "
+                                 f"(rc {run.returncode}):\n{run.stdout}\n"
+                                 f"{run.stderr[-4000:]}")
+        report_path = os.path.join(tmp, "gee_search.json")
+        search = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.gee_search",
+             "--edge-file", cl_path, "--nprobe", str(cl_k), "--queries",
+             str(N_QUERIES), "--json", report_path],
+            capture_output=True, text=True, timeout=600, env=env, cwd=REPO)
+        if search.returncode != 0:
+            raise AssertionError(f"gee_search --edge-file failed "
+                                 f"(rc {search.returncode}):\n"
+                                 f"{search.stdout}\n{search.stderr[-4000:]}")
+        with open(report_path) as f:
+            search_report = json.load(f)
+        if search_report["recall_at_k"] != 1.0:
+            raise AssertionError(f"gee_search --edge-file at full probe: "
+                                 f"recall {search_report['recall_at_k']}")
+        stream["gee_run_stdout"] = run.stdout
+        stream["gee_search"] = {k_: v for k_, v in search_report.items()
+                                if k_ != "service_stats"}
+    for name in ("row_norm", "pairwise_scores", "scored_topk_gathered"):
+        if stream_launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the streaming "
+                                 f"path")
+    stream["launches"] = stream_launches
+    sc_on, sc_off = scale[all_on.tag()], scale[all_off.tag()]
+    say(f"phase 10 streaming ({card}): {cl_spec.name} written in "
+        f"{stream['cl_write_s']:.1f} s, {cl_windows} windows of "
+        f"{DEFAULT_CHUNK_EDGES}: fit_transform_file vs the in-memory cuda "
+        f"fit of load_file, 8 settings {fmt_err(parity.values())}; default "
+        f"vs host gee_scipy {fmt_err([scipy_stream])}; prefetch 0 vs 2 "
+        f"{fmt_err([depth_err])} (each vs in-memory "
+        f"{fmt_err(depth_vs_mem)}); streamed index: full probe == brute "
+        f"force, recall@10 {s_recall:.4f} at nprobe {s_nprobe}; "
+        f"launches {stream_launches} in {stream['cl_s']:.1f} s | scale "
+        f"N={spec.num_nodes} E={spec.num_edges} K={k} written in "
+        f"{stream['scale_write_s']:.1f} s, {scale['windows']} windows: "
+        f"vs in-memory sparse_torch {all_off.tag()} "
+        f"{fmt_err([sc_off['max_err']])}, {all_on.tag()} "
+        f"{fmt_err([sc_on['max_err']])}; streamed fit (median of 3, host "
+        f"clock) {sc_off['host_ms_median_of_3']:.1f} ms "
+        f"({sc_off['edges_per_s'] / 1e6:.1f} M directed edges/s) "
+        f"{all_off.tag()}, {sc_on['host_ms_median_of_3']:.1f} ms "
+        f"({sc_on['edges_per_s'] / 1e6:.1f} M/s) {all_on.tag()}; device "
+        f"busy {scale['busy_share_profiler']:.3f} of the fit (profiler, "
+        f"{scale['profiler_device_records']} records; "
+        f"{scale['busy_share_events']:.3f} from per-window event times); "
+        f"per window: copy {scale['window_copy_ms']:.4f} ms, degree fold "
+        f"{scale['window_fold_degrees_ms']:.4f} ms, class fold "
+        f"{scale['window_fold_z_ms']:.4f} ms; split of the no-option fit "
+        f"(ms): " + " ".join(f"{key} {v:.1f}"
+                             for key, v in scale["split_ms"].items())
+        + f"; peak device memory streamed "
+        f"{sc_on['peak_bytes_streamed'] / 2**20:.1f} MiB (bound "
+        f"{bound / 2**20:.1f} MiB) vs in-memory "
+        f"{sc_on['peak_bytes_in_memory'] / 2**20:.1f} MiB; gee_run "
+        f"--edge-file --verify ok, gee_search --edge-file recall@10 "
+        f"{search_report['recall_at_k']:.4f} at full probe")
+    return stream
+
+
 def main() -> int:
     import torch
 
@@ -1652,10 +1971,22 @@ def main() -> int:
               f"{tg['flush_device_ms']:.4f} ms; launches {counted}")
     report["retrieval_timing"] = rtiming
 
+    # -- phase 10: streaming ---------------------------------------------------
+    all_kernels = {**kernels, **rkernels}
+    from repro_torch.graph.datasets import DatasetSpec
+
+    stream = streaming_phase(torch, card, all_kernels, replay,
+                             TABLE2["cl-100k-1d8-l5"],
+                             DatasetSpec(*SCALE_SPEC))
+    stream_launches = stream["launches"]
+    report["streaming"] = stream
+
     # -- phase 7: the kernels line -------------------------------------------
     # Slice 1's kernels: ms per fit of cl-100k-1d8-l5.  The retrieval
     # kernels: ms per launch at cl-100k-1d8-l5's l2 shapes (pairwise_scores
-    # at the index build, the others at a flush).
+    # at the index build, the others at a flush).  ``launches`` is the
+    # count of the kernel's own main path (phases 4-5 or 8);
+    # ``launches_streaming`` is phase 10's, counted apart.
     line = {"kernels": []}
     rt = rtiming["cl-100k-1d8-l5"]
     for name in list(kernels) + list(rkernels):
@@ -1668,7 +1999,9 @@ def main() -> int:
             source, n = TOPK_SOURCE, rlaunches[name]
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": REPLACES[name], "launches": n,
+            "replaces": REPLACES[name],
+            "launches": n,
+            "launches_streaming": stream_launches[name],
             "max_abs_err": worst(errs[name])[0],
             "max_rel_err": worst(errs[name])[1], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

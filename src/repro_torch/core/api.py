@@ -1,6 +1,11 @@
-"""Public API: ``GEEEmbedder`` (port of the in-memory part of
+"""Public API: ``GEEEmbedder`` and ``node_features`` (port of
 ``repro/core/api.py``, with similarity retrieval: ``build_index``,
 ``neighbors``, ``index``).
+
+In-memory graphs go through ``fit``/``fit_transform``; graphs on disk (any
+``repro_torch.graph.io`` format) through ``fit_file`` /
+``fit_transform_file``, which stream windows in bounded device memory.
+``partial_fit`` (incremental updates) is not yet ported.
 
 The embedder runs on the card unless the caller asks for the CPU:
 ``device=None`` resolves to ``cuda`` and raises ``RuntimeError`` when no GPU
@@ -16,9 +21,12 @@ from typing import Optional
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.chunked import gee_chunked
 from repro_torch.core.gee import GEEOptions
 from repro_torch.core.plan import GEEPlan, PreparedGraph
 from repro_torch.graph.containers import EdgeList
+from repro_torch.graph.io import (DEFAULT_CHUNK_EDGES, ChunkedEdgeList,
+                                  load_labels, open_edge_list)
 from repro_torch.search.index import (DEFAULT_PAD_MULTIPLE,
                                       ClassPartitionedIndex)
 
@@ -28,8 +36,14 @@ class GEEEmbedder:
     """Fit/transform-style wrapper around GEE.
 
     backend: 'auto' (default: ``cuda`` on the card, ``sparse_torch`` on
-             the CPU), 'cuda', 'sparse_torch', 'scipy' or 'python_loop'.
+             the CPU, ``chunked`` past the memory budget), 'cuda',
+             'sparse_torch', 'chunked', 'dense_torch', 'scipy' or
+             'python_loop'.  File-backed fits always stream.
     device:  where the graph and the embedding live; ``None`` is the card.
+    chunk_edges: the streaming window ('chunked' and file-backed fits).
+    prefetch_windows: windows staged ahead by background threads when
+             streaming (``None``: ``REPRO_GEE_PREFETCH_WINDOWS`` or 2; 0:
+             synchronous copies).
     """
 
     num_classes: int
@@ -37,9 +51,13 @@ class GEEEmbedder:
                                      correlation=True)
     backend: str = "auto"
     device: Optional[str] = None
+    chunk_edges: Optional[int] = None
+    prefetch_windows: Optional[int] = None
 
     _prepared: Optional[PreparedGraph] = dataclasses.field(default=None,
                                                           repr=False)
+    _chunked: Optional[ChunkedEdgeList] = dataclasses.field(default=None,
+                                                           repr=False)
     _labels: Optional[torch.Tensor] = dataclasses.field(default=None,
                                                         repr=False)
     _z: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
@@ -67,24 +85,86 @@ class GEEEmbedder:
         if prepared.device != device:
             prepared = PreparedGraph(prepared.base.to(device))
         self._prepared = prepared
+        self._chunked = None
         self._labels = torch.as_tensor(labels).to(device=device,
                                                   dtype=torch.int32)
         self._z = None
         self._reset_index()
         return self
 
+    def fit_file(self, path: str, labels=None, **open_kw) -> "GEEEmbedder":
+        """Fit from an on-disk edge list without materializing it.
+
+        ``path`` is any ``repro_torch.graph.io`` format (``.geeb``
+        memory-maps; text converts to a mapped sidecar once).
+        ``labels=None`` reads the ``<path>.labels.npy`` sidecar;
+        ``open_kw`` goes to ``open_edge_list``.  ``transform`` then streams
+        the two-pass fold on this embedder's device, whatever ``backend``
+        says.
+        """
+        device = resolve_device(self.device)
+        self._chunked = open_edge_list(
+            path, chunk_edges=self.chunk_edges or DEFAULT_CHUNK_EDGES,
+            **open_kw)
+        if labels is None:
+            labels = load_labels(path)
+            if labels is None:
+                raise ValueError(
+                    f"no labels given and no sidecar {path}.labels.npy")
+        self._prepared = None
+        self._labels = torch.as_tensor(labels).to(device=device,
+                                                  dtype=torch.int32)
+        self._z = None
+        self._reset_index()
+        return self
+
+    def fit_transform_file(self, path: str, labels=None,
+                           **open_kw) -> torch.Tensor:
+        """``fit_file`` + ``transform`` in one call (bounded memory)."""
+        return self.fit_file(path, labels, **open_kw).transform()
+
+    def partial_fit(self, delta) -> "GEEEmbedder":
+        """Incremental updates are not yet ported."""
+        raise NotImplementedError(
+            "partial_fit: not yet ported (incremental updates)")
+
     @property
     def prepared(self) -> Optional[PreparedGraph]:
-        """The fitted graph's memoized prep artifacts."""
+        """The fitted graph's memoized prep artifacts (None for
+        file-backed fits)."""
         return self._prepared
 
-    def transform(self) -> torch.Tensor:
+    def current_edges(self) -> EdgeList:
+        """The graph embedded.  For file-backed fits this materializes the
+        on-disk list (symmetrized if stored undirected) on this embedder's
+        device: fine for inspection, contrary to the point at scale."""
+        if self._chunked is not None:
+            return self._chunked.to_edge_list(
+                device=resolve_device(self.device))
         if self._prepared is None:
             raise RuntimeError("call fit() first")
+        return self._prepared.base
+
+    def _num_nodes(self) -> int:
+        if self._chunked is not None:
+            return self._chunked.num_nodes
+        return self._prepared.num_nodes
+
+    def transform(self) -> torch.Tensor:
+        if self._prepared is None and self._chunked is None:
+            raise RuntimeError("call fit() first")
         if self._z is None:
-            self._z = GEEPlan.build(
-                self._prepared, self.num_classes, self.options,
-                backend=self.backend).execute(self._labels)
+            if self._chunked is not None:
+                self._z = gee_chunked(
+                    self._chunked, self._labels, self.num_classes,
+                    self.options, prefetch_windows=self.prefetch_windows,
+                    device=self._labels.device)
+            else:
+                self._z = GEEPlan.build(
+                    self._prepared, self.num_classes, self.options,
+                    backend=self.backend, chunk_edges=self.chunk_edges,
+                    prefetch_windows=self.prefetch_windows,
+                ).execute(self._labels)
         return self._z
 
     def fit_transform(self, edges: "EdgeList | PreparedGraph",
@@ -160,4 +240,17 @@ class GEEEmbedder:
         self._index = None
 
 
-__all__ = ["GEEEmbedder"]
+def node_features(edges: "EdgeList | PreparedGraph", labels,
+                  num_classes: int,
+                  options: GEEOptions = GEEOptions(laplacian=True,
+                                                   diag_aug=True,
+                                                   correlation=True),
+                  backend: str = "auto", device=None) -> torch.Tensor:
+    """One-call functional form: graph + labels -> [N, K] features, on
+    ``device`` (``None``: the card)."""
+    return GEEEmbedder(num_classes=num_classes, options=options,
+                       backend=backend, device=device).fit_transform(
+                           edges, labels)
+
+
+__all__ = ["GEEEmbedder", "node_features"]

@@ -122,7 +122,21 @@ def apply_epilogue(z: torch.Tensor, labels: torch.Tensor, winv: torch.Tensor,
     return z
 
 
+def finalize(z_flat: torch.Tensor, labels: torch.Tensor, winv: torch.Tensor,
+             dinv: torch.Tensor, *, num_classes: int, opts,
+             impl: str = "torch") -> torch.Tensor:
+    """Apply the O(N*K) epilogue once to a streamed accumulator.
+
+    ``z_flat`` is the [N*K] (or [N, K]) pre-epilogue sum; ``dinv`` is all
+    ones when Laplacian normalization is off.  ``impl="auto"`` runs the
+    correlation row norm through the ``row_norm`` kernel on the card.
+    """
+    n = dinv.shape[0]
+    z = z_flat.reshape(n, num_classes)
+    return apply_epilogue(z, labels, winv, dinv, opts=opts, impl=impl)
+
+
 __all__ = ["EPS_NORM", "ROW_NORM_IMPLS", "row_l2_normalize",
            "row_l2_normalize_torch", "row_l2_normalize_np",
            "inv_sqrt_degrees", "inv_sqrt_degrees_np", "diag_aug_epilogue",
-           "apply_epilogue"]
+           "apply_epilogue", "finalize"]

@@ -7,9 +7,12 @@ Backends:
                     (host numpy; a copy of the reference's).
   gee_scipy         the paper's SciPy DOK -> CSR pipeline, faithful to the
                     Table 1 formulas (host numpy; a copy of the reference's).
+  gee_dense_torch   the O(N^2) dense-matmul oracle (``dense_torch``, the
+                    counterpart of ``dense_jax``).
   gee_sparse_torch  the port's plain reference backend (``sparse_torch``,
                     the counterpart of ``sparse_jax``): an O(E)
-                    ``index_add_`` over ``src*K + y``, on CPU or CUDA.
+                    ``index_add_`` over ``src*K + y`` into a float64
+                    accumulator, on CPU or CUDA.
 
 The kernel backend ``cuda`` lives in ``repro_torch.kernels``; ``gee``
 dispatches to all of them through ``repro_torch.core.plan.GEEPlan``.
@@ -32,7 +35,8 @@ import torch
 from repro_torch.core.epilogue import (EPS_NORM, inv_sqrt_degrees,
                                        row_l2_normalize_np,
                                        row_l2_normalize_torch)
-from repro_torch.graph.containers import EdgeList, add_self_loops, degrees
+from repro_torch.graph.containers import (EdgeList, add_self_loops, degrees,
+                                          to_dense)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +75,16 @@ def class_weight_inv(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
     nk = class_counts(labels, num_classes)
     return torch.where(nk > 0, 1.0 / torch.clamp(nk, min=1.0),
                        torch.zeros_like(nk))
+
+
+def weight_matrix_dense(labels: torch.Tensor,
+                        num_classes: int) -> torch.Tensor:
+    """W [N, K]: row j = one_hot(y_j) / n_{y_j}; zero row for unknown."""
+    valid = labels >= 0
+    onehot = torch.zeros((labels.shape[0], num_classes), dtype=torch.float32,
+                         device=labels.device)
+    onehot[valid, labels[valid].long()] = 1.0
+    return onehot * class_weight_inv(labels, num_classes)[None, :]
 
 
 # ---------------------------------------------------------------------------
@@ -168,6 +182,27 @@ def gee_scipy(src: np.ndarray, dst: np.ndarray, weight: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
+# the dense-matmul oracle
+# ---------------------------------------------------------------------------
+
+def gee_dense_torch(edges: EdgeList, labels: torch.Tensor, num_classes: int,
+                    opts: GEEOptions = GEEOptions()) -> torch.Tensor:
+    """A @ W on the dense adjacency: the O(N^2) oracle (``dense_torch``)."""
+    labels = torch.as_tensor(labels).to(device=edges.device,
+                                        dtype=torch.int32)
+    a = to_dense(edges)
+    if opts.diag_aug:
+        a = a + torch.eye(edges.num_nodes, dtype=a.dtype, device=a.device)
+    if opts.laplacian:
+        dinv = inv_sqrt_degrees(a.sum(dim=1))
+        a = dinv[:, None] * a * dinv[None, :]
+    z = a @ weight_matrix_dense(labels, num_classes)
+    if opts.correlation:
+        z = row_l2_normalize_torch(z)
+    return z
+
+
+# ---------------------------------------------------------------------------
 # the torch segment-sum backend: the port's plain reference path
 # ---------------------------------------------------------------------------
 
@@ -196,9 +231,11 @@ def gee_sparse_torch(edges: EdgeList, labels: torch.Tensor,
     yd_safe = torch.where(valid, yd, torch.zeros_like(yd)).long()
     contrib = torch.where(valid, w * winv[yd_safe], torch.zeros_like(w))
     flat_idx = edges.src.long() * k + yd_safe     # scatter target in [0, N*K)
-    z = torch.zeros(n * k, dtype=torch.float32, device=edges.device)
-    z.index_add_(0, flat_idx, contrib)
-    z = z.reshape(n, k)
+    # a float64 accumulator, rounded once: term after term, an f32 sum over
+    # a hub row drifts past 1e-5 of the row (repro_torch/core/fold.py)
+    z = torch.zeros(n * k, dtype=torch.float64, device=edges.device)
+    z.index_add_(0, flat_idx, contrib.double())
+    z = z.to(torch.float32).reshape(n, k)
     if opts.correlation:
         z = row_l2_normalize_torch(z)
     return z
@@ -210,8 +247,9 @@ def gee(edges, labels, num_classes: int, opts: GEEOptions = GEEOptions(),
     ``repro_torch.core.plan.GEEPlan`` on the graph's own device.
 
     ``edges`` is an ``EdgeList`` or a ``PreparedGraph``; backends are
-    ``sparse_torch``, ``cuda`` (the hand-written kernels), ``scipy``,
-    ``python_loop`` and ``auto``.
+    ``sparse_torch``, ``cuda`` (the hand-written kernels), ``chunked``
+    (window-streamed, bounded device memory), ``dense_torch`` (the O(N^2)
+    oracle), ``scipy``, ``python_loop`` and ``auto``.
     """
     from repro_torch.core.plan import GEEPlan   # deferred: plan builds on gee
 
@@ -220,5 +258,6 @@ def gee(edges, labels, num_classes: int, opts: GEEOptions = GEEOptions(),
 
 
 __all__ = ["GEEOptions", "ALL_OPTION_SETTINGS", "class_counts",
-           "class_weight_inv", "gee_python_loop", "gee_scipy",
+           "class_weight_inv", "weight_matrix_dense", "gee_python_loop",
+           "gee_scipy", "gee_dense_torch",
            "laplacian_edge_weights", "gee_sparse_torch", "gee"]

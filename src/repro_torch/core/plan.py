@@ -8,23 +8,25 @@
   ``GEEPlan``        resolves ``backend="auto"`` into explicit stages --
                      prep, compute, epilogue -- and executes them against a
                      labels vector.
-  ``select_backend`` the cost model behind ``backend="auto"``: the ``cuda``
-                     kernels for a graph on the card, ``sparse_torch`` on
-                     the CPU.
+  ``select_backend`` the cost model behind ``backend="auto"``: ``chunked``
+                     when the working-set estimate exceeds the memory
+                     budget, else the ``cuda`` kernels for a graph on the
+                     card and ``sparse_torch`` on the CPU.
   ``sweep_options``  the many-settings path: correlation is a pure row
                      postprocess, so the 8 option settings need only 4
                      scatter passes over shared prep.
 
-Backends ported so far: ``sparse_torch``, ``cuda``, ``scipy`` and
-``python_loop``.  The reference's streaming and multi-device backends
-(``chunked``, ``streamed_sharded``, ``distributed``) are not yet ported and
-raise ``ValueError``.
+Backends ported so far: ``sparse_torch``, ``cuda``, ``chunked``,
+``dense_torch``, ``scipy`` and ``python_loop``.  The reference's
+multi-device backends (``streamed_sharded``, ``distributed``) are not yet
+ported and raise ``ValueError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, Mapping, Tuple
+import os
+from typing import Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,13 +34,27 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import epilogue
 from repro_torch.core.gee import (ALL_OPTION_SETTINGS, GEEOptions,
-                                  gee_python_loop, gee_scipy,
-                                  gee_sparse_torch, laplacian_edge_weights)
+                                  gee_dense_torch, gee_python_loop,
+                                  gee_scipy, gee_sparse_torch,
+                                  laplacian_edge_weights)
 from repro_torch.graph.containers import (EdgeList, add_self_loops, degrees,
                                           edge_list_from_numpy, symmetrize)
 from repro_torch.kernels.gee_fused import MAX_CLASSES
 
-KNOWN_BACKENDS = ("sparse_torch", "cuda", "scipy", "python_loop")
+KNOWN_BACKENDS = ("sparse_torch", "cuda", "chunked", "dense_torch", "scipy",
+                  "python_loop")
+
+# Working-set budget for the cost model's route to ``chunked`` (the
+# reference's variable and default).
+ENV_MEMORY_BUDGET = "REPRO_GEE_MEMORY_BUDGET_BYTES"
+DEFAULT_MEMORY_BUDGET = 16 << 30
+
+
+def _chunk_key(chunk_edges: int | None) -> int:
+    """The ``("chunked", ...)`` cache-key component for a window size."""
+    from repro_torch.graph.io import DEFAULT_CHUNK_EDGES
+
+    return int(chunk_edges or DEFAULT_CHUNK_EDGES)
 
 
 # ---------------------------------------------------------------------------
@@ -60,6 +76,8 @@ class PreparedGraph:
                                        ``(diag_aug, laplacian)``
       * ``ell(diag_aug)`` /
         ``bucketed_ell(diag_aug)``     the kernels' packings (host O(E))
+      * ``chunked(chunk_edges)``       the streaming backend's window
+                                       manifest (slices on the device)
       * ``host_arrays()``              the valid-prefix numpy triple the
                                        SciPy / python-loop backends consume
     """
@@ -187,6 +205,16 @@ class PreparedGraph:
             ("bucketed_ell", bool(diag_aug)),
             lambda: edges_to_bucketed_ell(self.augmented(diag_aug)))
 
+    def chunked(self, chunk_edges: int | None = None):
+        """The streaming backend's window manifest over the valid prefix,
+        on the edge list's device (one manifest per window size)."""
+        from repro_torch.graph.io import ChunkedEdgeList
+
+        chunk = _chunk_key(chunk_edges)
+        return self._memo(
+            ("chunked", chunk),
+            lambda: ChunkedEdgeList.from_edge_list(self._edges, chunk))
+
     def host_arrays(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Valid-prefix ``(src, dst, weight)`` numpy triple."""
         return self._memo(("host",), self._edges.valid_arrays)
@@ -232,17 +260,31 @@ def estimate_working_set_bytes(graph: PreparedGraph | EdgeList,
     return base_bytes + 3 * 4 * e_eff + z_deg_bytes
 
 
+def memory_budget_bytes() -> int:
+    """The route-to-chunked threshold: ``REPRO_GEE_MEMORY_BUDGET_BYTES`` or
+    a 16 GiB default."""
+    return int(os.environ.get(ENV_MEMORY_BUDGET, DEFAULT_MEMORY_BUDGET))
+
+
 def select_backend(graph: PreparedGraph | EdgeList, num_classes: int, *,
-                   device=None) -> str:
+                   device=None, budget_bytes: int | None = None) -> str:
     """The ``backend="auto"`` cost model.
 
-    ``cuda`` (the hand-written kernels) for a graph on the card, whatever K:
-    past the fused kernel's cap (``MAX_CLASSES``) ``select_fused`` keeps
-    the plan on the staged kernels, which take any K.  ``sparse_torch`` on
-    the CPU.  ``device=None`` reads the graph's device.  The reference's
-    route to streaming past a memory budget is not yet ported.
+    1. If the estimated working set exceeds the memory budget, stream:
+       ``chunked``, whose device memory is O(window + N*K) whatever E is
+       (the reference's multi-device alternative is not yet ported).
+    2. ``cuda`` (the hand-written kernels) for a graph on the card,
+       whatever K: past the fused kernel's cap (``MAX_CLASSES``)
+       ``select_fused`` keeps the plan on the staged kernels.
+    3. ``sparse_torch`` on the CPU.
+
+    ``device=None`` reads the graph's device; ``budget_bytes=None`` reads
+    :func:`memory_budget_bytes`.
     """
     edges = graph.base if isinstance(graph, PreparedGraph) else graph
+    budget = memory_budget_bytes() if budget_bytes is None else budget_bytes
+    if estimate_working_set_bytes(graph, num_classes) > budget:
+        return "chunked"
     dev = torch.device(device).type if device is not None \
         else edges.device.type
     return "cuda" if dev == "cuda" else "sparse_torch"
@@ -294,14 +336,21 @@ class GEEPlan:
     opts: GEEOptions
     backend: str                      # resolved; never "auto"
     fused: bool = False               # cuda only: the fused-epilogue kernel
+    chunk_edges: Optional[int] = None  # chunked only: the window size
+    # chunked only: windows staged ahead by background threads (resolved by
+    # build(); None for the in-memory backends)
+    prefetch_windows: Optional[int] = None
 
     @staticmethod
     def build(graph: PreparedGraph | EdgeList, num_classes: int,
               opts: GEEOptions = GEEOptions(), *, backend: str = "auto",
-              fused: "bool | str" = "auto") -> "GEEPlan":
+              fused: "bool | str" = "auto", chunk_edges: int | None = None,
+              budget_bytes: int | None = None,
+              prefetch_windows: int | None = None) -> "GEEPlan":
         prepared = PreparedGraph.wrap(graph)
         if backend == "auto":
-            backend = select_backend(prepared, num_classes)
+            backend = select_backend(prepared, num_classes,
+                                     budget_bytes=budget_bytes)
         if backend not in KNOWN_BACKENDS:
             raise ValueError(
                 f"backend {backend!r} is not yet ported to repro_torch; "
@@ -309,9 +358,17 @@ class GEEPlan:
         if fused == "auto":
             fused = select_fused(backend, opts, device=prepared.device,
                                  num_classes=num_classes)
+        if backend == "chunked":
+            from repro_torch.graph.prefetch import resolve_prefetch_depth
+
+            prefetch_windows = resolve_prefetch_depth(prefetch_windows)
+        else:
+            prefetch_windows = None      # the knob exists for streaming only
         return GEEPlan(prepared=prepared, num_classes=int(num_classes),
                        opts=opts, backend=backend,
-                       fused=bool(fused) and backend == "cuda")
+                       fused=bool(fused) and backend == "cuda",
+                       chunk_edges=chunk_edges,
+                       prefetch_windows=prefetch_windows)
 
     # -- introspection -------------------------------------------------------
     @property
@@ -341,6 +398,17 @@ class GEEPlan:
                 out.append(PlanStage(
                     "compute", "gee_spmm",
                     detail="row-parallel class contraction per bucket"))
+        elif self.backend == "chunked":
+            chunk = _chunk_key(self.chunk_edges)
+            out.append(PlanStage("prep", "chunk_manifest",
+                                 cached=p.is_cached(("chunked", chunk)),
+                                 detail=f"window={chunk} edges, "
+                                        f"prefetch={self.prefetch_windows}"))
+            out.append(PlanStage("compute", "two_pass_stream",
+                                 detail="degree fold + per-class fold"))
+        elif self.backend == "dense_torch":
+            out.append(PlanStage("compute", "dense_matmul",
+                                 detail="A @ W oracle, O(N^2)"))
         else:                          # scipy / python_loop host references
             out.append(PlanStage("prep", "host_arrays",
                                  cached=p.is_cached(("host",)),
@@ -379,6 +447,14 @@ class GEEPlan:
             fn = gee_scipy if self.backend == "scipy" else gee_python_loop
             z = fn(src, dst, w, y, k, o, num_nodes=p.num_nodes)
             return torch.from_numpy(np.ascontiguousarray(z)).to(p.device)
+        if self.backend == "chunked":
+            from repro_torch.core.chunked import gee_chunked
+
+            return gee_chunked(p.chunked(self.chunk_edges), labels, k, o,
+                               prefetch_windows=self.prefetch_windows,
+                               device=p.device)
+        if self.backend == "dense_torch":
+            return gee_dense_torch(p.base, labels, k, o)
         labels = torch.as_tensor(labels).to(device=p.device,
                                             dtype=torch.int32)
         if self.backend == "sparse_torch":
@@ -409,7 +485,8 @@ class GEEPlan:
 
 def sweep_options(graph: PreparedGraph | EdgeList, labels, num_classes: int,
                   settings: Iterable[GEEOptions] = ALL_OPTION_SETTINGS, *,
-                  backend: str = "sparse_torch") -> Mapping[GEEOptions, torch.Tensor]:
+                  backend: str = "sparse_torch",
+                  chunk_edges: int | None = None) -> Mapping[GEEOptions, torch.Tensor]:
     """Embed one graph under many option settings with all prep shared;
     settings that differ only in correlation share one scatter pass.
     Returns ``{opts: Z}`` in the order given."""
@@ -421,8 +498,9 @@ def sweep_options(graph: PreparedGraph | EdgeList, labels, num_classes: int,
         if key not in raw:
             base = GEEOptions(laplacian=opts.laplacian,
                               diag_aug=opts.diag_aug)
-            raw[key] = GEEPlan.build(prepared, num_classes, base,
-                                     backend=backend).execute(labels)
+            raw[key] = GEEPlan.build(
+                prepared, num_classes, base, backend=backend,
+                chunk_edges=chunk_edges).execute(labels)
         z = raw[key]
         if opts.correlation:
             z = epilogue.row_l2_normalize(z.contiguous())
@@ -432,4 +510,5 @@ def sweep_options(graph: PreparedGraph | EdgeList, labels, num_classes: int,
 
 __all__ = ["PreparedGraph", "GEEPlan", "PlanStage", "select_backend",
            "select_fused", "sweep_options", "estimate_working_set_bytes",
-           "KNOWN_BACKENDS"]
+           "memory_budget_bytes", "KNOWN_BACKENDS", "ENV_MEMORY_BUDGET",
+           "DEFAULT_MEMORY_BUDGET"]

@@ -155,6 +155,15 @@ def degrees(edges: EdgeList) -> torch.Tensor:
     return deg.index_add_(0, edges.src.long(), edges.weight)
 
 
+def to_dense(edges: EdgeList) -> torch.Tensor:
+    """The (directed) adjacency matrix [N, N] f32, duplicates summed.
+    Oracle use only."""
+    n = edges.num_nodes
+    a = torch.zeros(n * n, dtype=torch.float32, device=edges.device)
+    a.index_add_(0, edges.src.long() * n + edges.dst.long(), edges.weight)
+    return a.reshape(n, n)
+
+
 @dataclasses.dataclass(frozen=True)
 class ELL:
     """Fixed-max-degree row-major tiling.
@@ -170,4 +179,4 @@ class ELL:
 
 
 __all__ = ["EdgeList", "ELL", "edge_list_from_numpy", "symmetrize",
-           "add_self_loops", "degrees"]
+           "add_self_loops", "degrees", "to_dense"]

@@ -67,6 +67,30 @@ def _scores_from_parts(dot, qn2, xn2, metric: str) -> torch.Tensor:
                        0.0)
 
 
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 ``fmaf(a, b, c)``: the product of two f32 values is exact in f64,
+    so the sum is rounded once to f64 and then to f32 (twice only where the
+    f64 sum lands on an f32 midpoint)."""
+    return (a.double() * b.double() + c.double()).to(torch.float32)
+
+
+def _score_sums(q: torch.Tensor, x: torch.Tensor):
+    """``dot``, ``qn2`` and ``xn2`` over the last axis of broadcastable
+    ``q`` and ``x``, one fma a term for k = 0, 1, ..., K - 1 in that order:
+    the kernels' ``score_of`` chain, shared by both plain scorers so that
+    one query and one row score the same bits on either route."""
+    shape = torch.broadcast_shapes(q.shape[:-1], x.shape[:-1])
+    dot = torch.zeros(shape, dtype=torch.float32, device=q.device)
+    qn2 = torch.zeros(q.shape[:-1], dtype=torch.float32, device=q.device)
+    xn2 = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+    for k in range(q.shape[-1]):
+        a, b = q[..., k], x[..., k]
+        dot = _fma(a, b, dot)
+        qn2 = _fma(a, a, qn2)
+        xn2 = _fma(b, b, xn2)
+    return dot, qn2, xn2
+
+
 def pairwise_scores_ref(queries: torch.Tensor, database: torch.Tensor,
                         valid: torch.Tensor | None = None,
                         metric: str = "l2") -> torch.Tensor:
@@ -75,9 +99,7 @@ def pairwise_scores_ref(queries: torch.Tensor, database: torch.Tensor,
     (``None``: all live)."""
     q = queries.to(torch.float32)
     x = database.to(torch.float32)
-    dot = q @ x.T
-    qn2 = torch.sum(q * q, dim=1, keepdim=True)
-    xn2 = torch.sum(x * x, dim=1)[None, :]
+    dot, qn2, xn2 = _score_sums(q[:, None, :], x[None, :, :])
     s = _scores_from_parts(dot, qn2, xn2, metric)
     if valid is None:
         return s
@@ -91,9 +113,7 @@ def gathered_scores_ref(queries: torch.Tensor, cand: torch.Tensor,
     candidates ``cand`` [Q, M, K]; ``mask == 0`` slots score ``NEG_INF``."""
     q = queries.to(torch.float32)
     c = cand.to(torch.float32)
-    dot = torch.einsum("qmk,qk->qm", c, q)
-    qn2 = torch.sum(q * q, dim=1, keepdim=True)
-    cn2 = torch.sum(c * c, dim=2)
+    dot, qn2, cn2 = _score_sums(q[:, None, :], c)
     s = _scores_from_parts(dot, qn2, cn2, metric)
     return torch.where(mask.to(torch.float32) > 0, s, NEG_INF)
 

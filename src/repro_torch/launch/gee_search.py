@@ -1,11 +1,12 @@
 """Vertex-similarity retrieval driver: build an index, replay a query stream
 (port of ``repro/launch/gee_search.py``).
 
-Embeds a graph (an SBM or a Table 2 stand-in), builds the class-partitioned
-index over Z, replays a stream of vertex-id queries through the batched
-``GEEQueryService`` and reports build time, QPS, per-flush latency
-percentiles and recall@k against exact brute force on a sample.  Runs on
-the card unless ``--device cpu`` is given.
+Embeds a graph (an SBM, a Table 2 stand-in, or an edge file streamed in
+bounded memory), builds the class-partitioned index over Z, replays a
+stream of vertex-id queries through the batched ``GEEQueryService`` and
+reports build time, QPS, per-flush latency percentiles and recall@k
+against exact brute force on a sample.  Runs on the card unless
+``--device cpu`` is given.
 
   PYTHONPATH=src python -m repro_torch.launch.gee_search --sbm 5000 \\
       --queries 2000
@@ -13,6 +14,8 @@ the card unless ``--device cpu`` is given.
       --device cpu
   PYTHONPATH=src python -m repro_torch.launch.gee_search --dataset citeseer \\
       --nprobe 2 --k 20
+  PYTHONPATH=src python -m repro_torch.launch.gee_search --edge-file g.geeb \\
+      --chunk-edges 1048576 --queries 10000
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from repro_torch import resolve_device
 from repro_torch.core.api import GEEEmbedder
 from repro_torch.core.gee import GEEOptions
 from repro_torch.graph.datasets import TABLE2, load
+from repro_torch.graph.io import load_labels
 from repro_torch.graph.sbm import sample_sbm
 from repro_torch.obs import cli as obs_cli
 from repro_torch.search.service import GEEQueryService
@@ -66,9 +70,11 @@ def main(argv=None):
     ap.add_argument("--dataset", default=None,
                     help=f"one of {sorted(TABLE2)}")
     ap.add_argument("--edge-file", default=None,
-                    help="not yet ported: embedding an on-disk edge list")
+                    help="embed an on-disk edge list out-of-core first "
+                         "(any repro_torch.graph.io format; labels from the "
+                         "<file>.labels.npy sidecar)")
     ap.add_argument("--chunk-edges", type=int, default=None,
-                    help="not yet ported: streaming window for --edge-file")
+                    help="streaming window for --edge-file")
     ap.add_argument("--metric", default="l2", choices=("l2", "cosine"))
     ap.add_argument("--nprobe", type=int, default=None,
                     help="cells scanned per query (default ceil(sqrt(C)))")
@@ -89,9 +95,6 @@ def main(argv=None):
                     help="also write a JSON report here")
     obs_cli.add_flags(ap)
     args = ap.parse_args(argv)
-    if args.edge_file or args.chunk_edges:
-        raise NotImplementedError("--edge-file/--chunk-edges: the out-of-core "
-                                  "reader is not yet ported to repro_torch")
     device = resolve_device(args.device)
     obs_cli.setup(args)
 
@@ -101,16 +104,28 @@ def main(argv=None):
         opts = GEEOptions(laplacian=True, diag_aug=True, correlation=True)
 
     t0 = time.perf_counter()
-    if args.sbm:
-        s = sample_sbm(args.sbm, seed=args.seed, device=device)
-        edges, labels, k_cls = s.edges, s.labels, s.num_classes
-        name = f"sbm-{args.sbm}"
+    if args.edge_file:
+        labels = load_labels(args.edge_file)
+        if labels is None:
+            raise SystemExit(f"--edge-file needs a labels sidecar "
+                             f"({args.edge_file}.labels.npy)")
+        emb = GEEEmbedder(num_classes=max(int(labels.max()) + 1, 1),
+                          options=opts, device=str(device),
+                          chunk_edges=args.chunk_edges)
+        emb.fit_file(args.edge_file, labels)
+        name = args.edge_file
     else:
-        ds = load(args.dataset or "citeseer", seed=args.seed, device=device)
-        edges, labels, k_cls = ds.edges, ds.labels, ds.spec.num_classes
-        name = ds.spec.name
-    emb = GEEEmbedder(num_classes=k_cls, options=opts,
-                      device=str(device)).fit(edges, labels)
+        if args.sbm:
+            s = sample_sbm(args.sbm, seed=args.seed, device=device)
+            edges, labels, k_cls = s.edges, s.labels, s.num_classes
+            name = f"sbm-{args.sbm}"
+        else:
+            ds = load(args.dataset or "citeseer", seed=args.seed,
+                      device=device)
+            edges, labels, k_cls = ds.edges, ds.labels, ds.spec.num_classes
+            name = ds.spec.name
+        emb = GEEEmbedder(num_classes=k_cls, options=opts,
+                          device=str(device)).fit(edges, labels)
     z = emb.transform()
     _sync(device)
     t_embed = time.perf_counter() - t0

@@ -170,10 +170,13 @@ def test_backend_selection(monkeypatch):
     assert estimate_working_set_bytes(g, 3, backend="cuda") > \
         estimate_working_set_bytes(g, 3)
     assert GEEPlan.build(g, 3).backend == "sparse_torch"
-    for name in ("chunked", "streamed_sharded", "distributed", "pallas"):
+    # past the memory budget the card streams too
+    assert select_backend(g, 3, device="cuda", budget_bytes=1) == "chunked"
+    for name in ("streamed_sharded", "distributed", "pallas"):
         with pytest.raises(ValueError, match="not yet ported"):
             GEEPlan.build(g, 3, backend=name)
-    assert KNOWN_BACKENDS == ("sparse_torch", "cuda", "scipy", "python_loop")
+    assert KNOWN_BACKENDS == ("sparse_torch", "cuda", "chunked",
+                              "dense_torch", "scipy", "python_loop")
 
 
 def test_select_fused(monkeypatch):

@@ -365,12 +365,17 @@ def test_gee_search_cli_full_probe(tmp_path):
     t_trace.disable()
 
 
-def test_gee_search_cli_refuses_unported_input():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_gee_search.main(["--edge-file", "g.geeb", "--device", "cpu"])
+def test_gee_search_cli_refuses_unported_input(tmp_path):
+    # edge files are ported now (tests/test_torch_leftovers.py runs one);
+    # what is still refused is a file no reader takes
+    path = tmp_path / "g.csv"
+    path.write_text("0 1\n")
+    np.save(str(path) + ".labels.npy", np.zeros(2, np.int32))
+    with pytest.raises(ValueError, match="unsupported edge-file suffix"):
+        t_gee_search.main(["--edge-file", str(path), "--device", "cpu"])
 
 
-def test_datasets_load():
+def test_datasets_load(tmp_path):
     got = tdatasets.load("citeseer", seed=3, device="cpu")
     want = jdatasets.load("citeseer", seed=3)
     assert got.spec.name == want.spec.name == "citeseer"
@@ -379,7 +384,15 @@ def test_datasets_load():
                                   np.asarray(want.edges.src))
     np.testing.assert_array_equal(got.edges.dst.numpy(),
                                   np.asarray(want.edges.dst))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tdatasets.load("graphs/big.geeb", device="cpu")
+    # an edge-file path loads through the ported reader now
+    path = str(tmp_path / "big.geeb")
+    tdatasets.synth_to_disk(tdatasets.DatasetSpec("big", 50, 120, 3), path)
+    got = tdatasets.load(path, device="cpu")
+    want = jdatasets.load(path)
+    np.testing.assert_array_equal(got.labels, want.labels)
+    np.testing.assert_array_equal(got.edges.src.numpy(),
+                                  np.asarray(want.edges.src))
+    with pytest.raises(FileNotFoundError):
+        tdatasets.load(str(tmp_path / "missing.geeb"), device="cpu")
     with pytest.raises(KeyError, match="unknown dataset"):
         tdatasets.load("nope", device="cpu")

@@ -102,6 +102,27 @@ def test_gathered_scores_plain_matches_pallas(q, m, k, live, metric):
     _assert_scores(got.numpy(), want)
 
 
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("k", [1, 3, 5, 17])
+def test_plain_scorers_agree_bitwise(metric, k):
+    """A query scores a database row to the same bits whether the row comes
+    from the shared database or from a per-query candidate block, as on the
+    card, so the full probe and brute force round alike."""
+    rng = np.random.default_rng(k)
+    qv = rng.standard_normal((6, k)).astype(np.float32)
+    x = rng.standard_normal((40, k)).astype(np.float32)
+    x[3] = 0.0
+    qv[1] = x[7]                       # a self-match: l2 scores exactly 0
+    pick = rng.integers(0, 40, (6, 25))
+    pick[1, 0] = 7
+    want = ref.pairwise_scores_ref(*_t(qv, x), None, metric).numpy()
+    got = ref.gathered_scores_ref(
+        *_t(qv, x[pick], np.ones(pick.shape, np.float32)), metric).numpy()
+    np.testing.assert_array_equal(got, np.take_along_axis(want, pick, 1))
+    if metric == "l2":
+        assert got[1, 0] == 0.0
+
+
 @pytest.mark.parametrize("k", [1, 4, 9, 40])
 @pytest.mark.parametrize("with_ids", [False, True])
 def test_masked_topk_matches_reference_tie_order(k, with_ids):
