@@ -27,10 +27,18 @@ paths on the paper's 10k-node SBM and on the ``cl-100k-1d8-l5`` stand-in
   share, the fold's time per window and the peak device memory under a
   stated bound; retrieval over the streamed embedding; and the
   ``gee_run`` / ``gee_search --edge-file`` entry points in processes of
-  their own.
+  their own;
+* serving under deltas (phase 11): ``partial_fit`` under all 8 settings
+  against fresh fits of the mutated graph; ``gee_stream`` on
+  ``cl-100k-1d8-l5`` through ``GEEDeltaServer`` and a ``GEEQueryService`` on
+  a live index (index repair and query flushes each batch), with no options
+  and all on, against a cold ``cuda`` fit and a warm ``sparse_torch``
+  refit of the mutated graph, with the device time split by kind; a
+  ``gee_stream --snapshot-dir`` process SIGKILLed and recovered against an
+  uninterrupted one; two read replicas behind a ``ReplicaRouter``.
 
 Each path runs with every kernel's launch count set to 0 just before it and
-read just after.  Every kernel is timed with CUDA events beside its bound;
+read just after; phase 11 counts its own checks apart.  Every kernel is timed with CUDA events beside its bound;
 the two contraction kernels also per degree bucket with the L2 flushed,
 with the device work one bucket launch enqueues, and a warm fit's device
 time split by prep pass; ``pairwise_scores`` at its three shapes (index
@@ -87,6 +95,19 @@ SCALE_SPEC = ("scale-2m-50m", 2_000_000, 50_000_000, 5)
 N_QUERIES = 4096
 FLUSH = 64
 TOP_K = 10
+# serving under deltas (phase 11): the parity run's SBM and its batches,
+# the full-width stream's dataset, its batches with no options and the
+# seconds the all-on stream may take (at least 8 batches), the timed
+# sparse_torch refits of the mutated graph, and the kill-and-recover
+# stream's SBM and batches
+PARITY_NODES = 2000
+PARITY_BATCHES = 32
+STREAM_DATASET = "cl-100k-1d8-l5"
+STREAM_BATCHES = 256
+STREAM_ALL_ON_S = 60.0
+REFIT_REPS = 3
+KILL_NODES = 2000
+KILL_BATCHES = 24
 
 
 def say(line: str) -> None:
@@ -186,6 +207,46 @@ def host_ms(torch, fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times))
+
+
+def device_busy(torch, prof) -> tuple:
+    """The union of the device intervals (kernels, copies) a
+    ``torch.profiler`` run recorded, in us, and their count."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+    return busy_us, len(spans)
+
+
+def device_time_by_kind(torch, prof) -> tuple:
+    """The device time (us, summed) and the records a ``torch.profiler``
+    run recorded, by kind (kernels, host-to-device copies from pageable and
+    from pinned memory, other copies, memsets), and each kernel's time by
+    name."""
+    out, names = {}, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if e.name.startswith("Memcpy HtoD"):
+            kind = "htod_pageable" if "Pageable" in e.name else "htod_pinned"
+        elif e.name.startswith("Memcpy"):
+            kind = "copy_other"
+        elif e.name.startswith("Memset"):
+            kind = "memset"
+        else:
+            kind = "kernel"
+        dur = e.time_range.end - e.time_range.start
+        us, n = out.get(kind, (0.0, 0))
+        out[kind] = (us + dur, n + 1)
+        if kind == "kernel":
+            names[e.name] = names.get(e.name, 0.0) + dur
+    return ({kind: {"us": us, "records": n} for kind, (us, n) in out.items()},
+            names)
 
 
 def max_err(torch, got, want, scale=None) -> tuple:
@@ -1210,16 +1271,9 @@ def streaming_phase(torch, card, all_kernels, replay, cl_spec,
             streamed(all_on)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
-        busy_us, end = 0.0, float("-inf")
-        for lo, hi in spans:
-            if hi > end:
-                busy_us += hi - max(lo, end)
-                end = hi
+        busy_us, records = device_busy(torch, prof)
         scale["busy_share_profiler"] = busy_us / wall_us
-        scale["profiler_device_records"] = len(spans)
+        scale["profiler_device_records"] = records
 
         # the fold's device time for one window, by CUDA events: the H2D
         # copy from pinned memory, the degree fold, the class fold
@@ -1314,6 +1368,439 @@ def streaming_phase(torch, card, all_kernels, replay, cl_spec,
         f"--edge-file --verify ok, gee_search --edge-file recall@10 "
         f"{search_report['recall_at_k']:.4f} at full probe")
     return stream
+
+
+def serving_phase(torch, card, all_kernels) -> dict:
+    """Phase 11: serving under deltas.  (1) 8-setting parity of
+    ``partial_fit`` on an SBM against fresh ``cuda`` and ``sparse_torch``
+    fits of the mutated graph; (2) ``gee_stream`` on ``STREAM_DATASET``
+    through ``GEEDeltaServer`` and a ``GEEQueryService`` on a live index,
+    256 batches with no options and as many as ``STREAM_ALL_ON_S`` allows
+    with all on, each against a cold from-scratch ``cuda`` fit and a warm
+    ``sparse_torch`` refit of the mutated graph; (3) ``gee_stream
+    --snapshot-dir`` SIGKILLed after two snapshots, recovered, against an
+    uninterrupted run; (4) two replicas behind a router: a strict read
+    catches one up, a full router sheds.  Counts every kernel's launches on
+    the serving path alone (promotion, updates, repairs, query flushes,
+    recovery, replica reads) and, apart, those of the phase's own checks
+    (Z read back for comparison, full probe against brute force, the
+    directories recovered to compare); the comparison fits run outside
+    both.  Prints one line; returns the numbers."""
+    import gc
+    import signal
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.api import GEEEmbedder
+    from repro_torch.core.gee import ALL_OPTION_SETTINGS, gee_sparse_torch
+    from repro_torch.graph.containers import edge_list_from_numpy, symmetrize
+    from repro_torch.graph.delta import (edge_delta_from_numpy,
+                                         label_delta_from_numpy,
+                                         symmetrize_delta)
+    from repro_torch.graph.sbm import sample_sbm
+    from repro_torch.kernels import ref as ref_mod
+    from repro_torch.kernels import row_norm as row_norm_mod
+    from repro_torch.launch import gee_stream
+    from repro_torch.launch.gee_search import recall_at_k
+    from repro_torch.search import index as index_mod
+    from repro_torch.search.service import LoadShedError
+    from repro_torch.serve.replica import GEEReplica, ReplicaRouter
+    from repro_torch.serve.snapshot import GEESnapshotter, recover
+
+    device = DEVICE
+    serving = {"card": card}
+    launches = dict.fromkeys(all_kernels, 0)
+    checks = dict.fromkeys(all_kernels, 0)
+    kernel_errs = {"pairwise_scores": [], "row_norm": []}
+
+    def counted(into, fn):
+        """Run ``fn`` with every count set to 0 just before it, adding what
+        it launched to ``into`` (a call that raises, as a shed read does,
+        counts what it launched)."""
+        for k_fn in all_kernels.values():
+            k_fn.launches = 0
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            for name, k_fn in all_kernels.items():
+                into[name] += k_fn.launches
+        return out
+
+    def on_path(fn):
+        """One call of the serving path."""
+        return counted(launches, fn)
+
+    def on_check(fn):
+        """One of the phase's own checks."""
+        return counted(checks, fn)
+
+    # -- (1) parity under all 8 settings --------------------------------------
+    t0 = time.perf_counter()
+    s = sample_sbm(PARITY_NODES, seed=0, device="cpu")
+    k = s.num_classes
+    src, dst, w = s.edges.valid_arrays()
+    keep = src < dst                              # one entry an edge
+    rng = np.random.default_rng(0)
+    perm = rng.permutation(int(keep.sum()))
+    su, du, wu = src[keep][perm], dst[keep][perm], w[keep][perm]
+    n_hold = su.size // 5                         # 20 % held out
+    base = symmetrize(edge_list_from_numpy(
+        su[n_hold:], du[n_hold:], wu[n_hold:], PARITY_NODES, device=device))
+    parity = {}
+    for opts in ALL_OPTION_SETTINGS:
+        emb = GEEEmbedder(num_classes=k, options=opts, backend="cuda",
+                          device=device).fit(base, s.labels)
+        brng = np.random.default_rng(1)
+        cancel = iter(np.random.default_rng(2).permutation(su.size - n_hold)
+                      + n_hold)
+        errs = []
+        for b in range(PARITY_BATCHES):
+            # 56 held-out edges in, 8 base edges cancelled (weight -w)
+            ins = slice(b * 56, (b + 1) * 56)
+            out_ = [next(cancel) for _ in range(8)]
+            delta = symmetrize_delta(edge_delta_from_numpy(
+                np.r_[su[ins], su[out_]], np.r_[du[ins], du[out_]],
+                np.r_[wu[ins], -wu[out_]]))
+            nodes = brng.integers(0, PARITY_NODES, 2)
+            ldelta = label_delta_from_numpy(
+                nodes, brng.integers(-1, k, 2).astype(np.int32))
+            on_path(lambda: emb.partial_fit(delta).partial_fit(ldelta))
+            if (b + 1) % 8:
+                continue
+            z = on_path(emb.transform)
+            cur, y = emb.current_edges(), emb._labels
+            z_fit = GEEEmbedder(num_classes=k, options=opts, backend="cuda",
+                                device=device).fit_transform(cur, y)
+            z_sp = gee_sparse_torch(cur, y, k, opts)
+            if z.shape != (PARITY_NODES, k) or \
+                    not bool(torch.isfinite(z).all()):
+                raise AssertionError(f"partial_fit {opts.tag()}: bad Z")
+            errs += [max_err(torch, z, z_fit), max_err(torch, z, z_sp)]
+        parity[opts.tag()] = worst(errs)
+        del emb
+    torch.cuda.synchronize()
+    serving["parity"] = parity
+    serving["parity_s"] = time.perf_counter() - t0
+
+    # -- (2) the full-width stream --------------------------------------------
+    def stream(flags, batches, seconds=None):
+        args = gee_stream.parse_args(
+            ["--dataset", STREAM_DATASET, "--stream-frac", "0.01",
+             "--batch", "64", "--max-batches", str(batches),
+             "--queries", str(FLUSH), "--k", str(TOP_K),
+             "--verify-every", "0", "--seed", "0", "--device", str(device)]
+            + flags + ([] if seconds is None
+                       else ["--max-seconds", str(seconds)]))
+        # the profiler records the batches alone (not the promotion)
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        out = on_path(lambda: gee_stream.run(args, around_batches=prof))
+        inc, index = out["inc"], out["index"]
+        busy_us, records = device_busy(torch, prof)
+        by_kind, by_name = device_time_by_kind(torch, prof)
+        # the update-against-recompute gap, against two refits of the
+        # mutated graph outside the counted calls: a cold from-scratch cuda
+        # fit (packing paid again) and a warm sparse_torch fit (no packing;
+        # the median of REFIT_REPS after one warm-up), then an index build
+        # over the refit, against a batch's update and repair
+        cur = inc.to_edge_list()
+        tf = time.perf_counter()
+        z_fit = GEEEmbedder(num_classes=inc.k, options=inc.opts,
+                            backend="cuda", device=device
+                            ).fit_transform(cur, inc.labels)
+        torch.cuda.synchronize()
+        fit_ms = (time.perf_counter() - tf) * 1e3
+        yt = torch.from_numpy(inc.labels).to(device)
+        z_sp = gee_sparse_torch(cur, yt, inc.k, inc.opts)
+        refit_ms = host_ms(torch, lambda: gee_sparse_torch(
+            cur, yt, inc.k, inc.opts), REFIT_REPS)
+        rebuild_ms = host_ms(torch, lambda: index_mod.ClassPartitionedIndex
+                             .build(z_sp, inc.labels, inc.k), REFIT_REPS)
+        z = on_check(inc.embedding)
+        err = worst([max_err(torch, z, z_fit), max_err(torch, z, z_sp)])
+        # the top 10 at full probe equals brute force (near ties as sets)
+        rows = np.random.default_rng(5).integers(0, inc.n, 4 * FLUSH)
+        zq = index.z[torch.from_numpy(rows).to(device)]
+        ids_f, sc_f = on_check(lambda: index.search(
+            zq, TOP_K, nprobe=index.num_cells))
+        ids_b, sc_b = on_check(lambda: index.search(zq, TOP_K,
+                                                    brute_force=True))
+        ties = same_topk(ids_f.cpu().numpy(), sc_f.cpu().numpy(),
+                         ids_b.cpu().numpy(), sc_b.cpu().numpy(),
+                         term_scale(torch, zq, index.z, "l2").cpu().numpy())
+        # the path's kernel inputs against the plain versions (uncounted):
+        # a full repair's scoring (a label flip's shape) and, with
+        # correlation, a full refresh's row norm
+        every = np.arange(inc.n)
+        with Recorder(index_mod, "pairwise_scores", keep=1) as rec_p:
+            index.update_rows(every, inc.embedding(every))
+        with Recorder(row_norm_mod, "row_norm", keep=1) as rec_n:
+            inc._materialize_rows(every, inc._winv())
+        for a, kw in rec_p.calls:
+            kernel_errs["pairwise_scores"].append(score_err(
+                torch, all_kernels["pairwise_scores"](*a, **kw),
+                ref_mod.pairwise_scores_ref(a[0], a[1], a[2], kw["metric"]),
+                term_scale(torch, a[0], a[1], kw["metric"])))
+        for a, kw in rec_n.calls:
+            kernel_errs["row_norm"].append(max_err(
+                torch, all_kernels["row_norm"](*a, **kw),
+                ref_mod.row_norm_ref(*a, **kw)))
+        upd, q = np.asarray(out["update_ms"]), np.asarray(out["query_ms"])
+        flush_p50 = float(np.percentile(upd, 50))
+        upd_rep_p50 = float(np.percentile(upd + np.asarray(out["repair_ms"]),
+                                          50))
+        res = {
+            "batches": out["batches_run"], "stream_s": out["stream_s"],
+            "promote_host_ms": out["promote_ms"],
+            "flush_ms_p50": flush_p50,
+            "flush_ms_p95": float(np.percentile(upd, 95)),
+            "rows_recomputed_per_batch": float(np.mean(
+                out["rows_recomputed"])),
+            "row_edges_scanned_per_batch": float(np.mean(
+                out["row_edges_scanned"])),
+            "repair_ms_p50": float(np.percentile(out["repair_ms"], 50)),
+            "repair_rows_per_batch": float(np.mean(out["repair_rows"])),
+            "bucket_moves_per_batch": float(np.mean(out["repair_moves"])),
+            "query_flush_ms_p50": float(np.percentile(q, 50)),
+            "busy_share": busy_us / (out["stream_s"] * 1e6),
+            "profiler_device_records": records,
+            "device_us_per_batch_by_kind": {
+                kind: v["us"] / out["batches_run"]
+                for kind, v in by_kind.items()},
+            "device_records_by_kind": {
+                kind: v["records"] for kind, v in by_kind.items()},
+            "top_kernels_us_per_batch": {
+                name[:100]: us / out["batches_run"] for name, us in sorted(
+                    by_name.items(), key=lambda kv: -kv[1])[:8]},
+            "cold_cuda_fit_ms": fit_ms, "warm_sparse_torch_fit_ms": refit_ms,
+            # above 1, a batch's flush is faster than the faster refit
+            "refit_over_flush_p50": min(fit_ms, refit_ms) / flush_p50,
+            "index_rebuild_ms": rebuild_ms,
+            "update_and_repair_ms_p50": upd_rep_p50,
+            # the same with the index: a refit and a rebuild against a
+            # batch's update and repair
+            "refit_and_rebuild_over_update_and_repair_p50":
+                (min(fit_ms, refit_ms) + rebuild_ms) / upd_rep_p50,
+            "max_err": err,
+            "near_tie_groups": len(ties), "watermark": out["watermark"]}
+        del out, inc, index, cur, z_fit, z_sp, z, prof
+        gc.collect()
+        return res
+
+    t0 = time.perf_counter()
+    plain = stream([], STREAM_BATCHES)
+    all_on = stream(["--lap", "--diag", "--cor"], STREAM_BATCHES,
+                    STREAM_ALL_ON_S)
+    if all_on["batches"] < 8:
+        raise AssertionError(f"all-on stream ran {all_on['batches']} "
+                             f"batches, fewer than 8")
+    serving["stream"] = {"none": plain, "all_on": all_on}
+    serving["stream_s"] = time.perf_counter() - t0
+
+    # -- (3) kill and recover -------------------------------------------------
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
+    kill_args = ["--sbm", str(KILL_NODES), "--lap", "--diag", "--batch", "64",
+                 "--stream-frac", "0.2", "--max-batches", str(KILL_BATCHES),
+                 "--snapshot-every", "2", "--verify-every", "0", "--seed",
+                 "3", "--device", str(device)]
+
+    def spawn(directory, *extra):
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.gee_stream",
+             *kill_args, "--snapshot-dir", directory, *extra],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env, cwd=REPO)
+
+    def finish(proc, what):
+        try:
+            out, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate(timeout=60)
+        if proc.returncode != 0:
+            raise AssertionError(f"gee_stream {what} failed (rc "
+                                 f"{proc.returncode}):\n{out[-4000:]}")
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_dir, kill_dir = (os.path.join(tmp, d) for d in ("ref", "kill"))
+        procs = [spawn(ref_dir)]
+        child = spawn(kill_dir)
+        procs.append(child)
+        try:
+            # kill once two snapshots exist and the WAL holds a record past
+            # the newer one, so the recovery below replays a batch
+            snaps = os.path.join(kill_dir, "snapshots")
+            wal = os.path.join(kill_dir, "wal")
+            deadline = time.time() + 600
+            killed = False
+            while time.time() < deadline and child.poll() is None:
+                steps = sorted(int(d[5:]) for d in (
+                    os.listdir(snaps) if os.path.isdir(snaps) else ())
+                    if d.startswith("step_"))
+                recs = [int(r[4:14]) for r in (
+                    os.listdir(wal) if os.path.isdir(wal) else ())
+                    if r.startswith("rec_")]
+                if len(steps) >= 2 and any(r >= steps[-1] for r in recs):
+                    child.send_signal(signal.SIGKILL)
+                    child.wait(timeout=60)
+                    killed = True
+                    break
+                time.sleep(0.05)
+            if not killed:
+                raise AssertionError("the stream ended before the kill "
+                                     "point")
+            # recovery of the killed directory as found: snapshot load and
+            # WAL replay, timed by its timeline
+            found = on_path(lambda: recover(kill_dir, device=device))
+            timeline = {e["event"]: e for e in found.timeline}
+            del found
+            resumed = finish(spawn(kill_dir, "--recover"), "--recover")
+            finish(procs[0], "uninterrupted")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=60)
+        ref = on_check(lambda: recover(ref_dir, device=device))
+        rec = on_check(lambda: recover(kill_dir, device=device))
+        if rec.inc.applied_seq != ref.inc.applied_seq:
+            raise AssertionError(f"watermarks differ: recovered "
+                                 f"{rec.inc.applied_seq}, uninterrupted "
+                                 f"{ref.inc.applied_seq}")
+        for name in ("S", "nk", "deg", "_dinv", "labels"):
+            if not np.array_equal(getattr(rec.inc, name),
+                                  getattr(ref.inc, name)):
+                raise AssertionError(f"recovered {name} differs")
+        z_ref = on_check(ref.inc.embedding)
+        z_rec = on_check(rec.inc.embedding)
+        kill_err = float((z_rec.double() - z_ref.double()).abs().max())
+        if kill_err > 1e-5:
+            raise AssertionError(f"recovered Z off by {kill_err:.3g}")
+        rows = np.arange(0, KILL_NODES, 7)
+        rq = torch.from_numpy(rows).to(device)
+        ids_b, sc_b = on_check(lambda: ref.index.search(
+            z_ref[rq], TOP_K, brute_force=True))
+        ids_r, sc_r = on_check(lambda: rec.index.search(
+            z_rec[rq], TOP_K, nprobe=rec.index.num_cells))
+        same_topk(ids_r.cpu().numpy(), sc_r.cpu().numpy(),
+                  ids_b.cpu().numpy(), sc_b.cpu().numpy(),
+                  term_scale(torch, z_rec[rq], z_rec, "l2").cpu().numpy())
+        if recall_at_k(ids_r.cpu().numpy(), sc_r.cpu().numpy(),
+                       ids_b.cpu().numpy(), sc_b.cpu().numpy()) != 1.0:
+            raise AssertionError("recovered top 10 != brute force")
+        # one snapshot of the recovered state, timed (quiesce, capture,
+        # durable write)
+        snap = GEESnapshotter(os.path.join(tmp, "timed"), every=10**9)
+        ts = time.perf_counter()
+        snap.snapshot(rec.inc, rec.index)
+        snapshot_ms = (time.perf_counter() - ts) * 1e3
+        snap.close()
+        serving["kill"] = {
+            "watermark": int(rec.inc.applied_seq), "max_abs_err": kill_err,
+            "snapshot_ms": snapshot_ms,
+            "recover_load_ms": timeline["load_snapshot"]["ms"],
+            "recover_replay_ms": timeline["replay"]["ms"],
+            "recover_replayed_deltas": timeline["replay"][
+                "replayed_deltas"],
+            "recover_total_ms": timeline["recovered"]["ms"],
+            "resumed_line": next(line for line in resumed.splitlines()
+                                 if "recovered snapshot step" in line)}
+        del ref
+
+        # -- (4) replicas -------------------------------------------------
+        reps = on_path(lambda: [GEEReplica.from_directory(
+            kill_dir, name=f"r{i}", device=device, flush_every=10**9,
+            max_pending=2 * FLUSH) for i in range(2)])
+        router = ReplicaRouter(reps, max_lag=0)
+        prng = np.random.default_rng(9)
+        router.publish([edge_delta_from_numpy(
+            prng.integers(0, KILL_NODES, 64), prng.integers(0, KILL_NODES, 64),
+            np.ones(64, np.float32))])
+        behind = [r.watermark for r in reps]
+        ids, _ = on_path(lambda: router.read_rows(np.arange(FLUSH), TOP_K,
+                                                  max_lag=0))
+        if max(r.watermark for r in reps) != router.head_seq \
+                or ids.shape != (FLUSH, TOP_K):
+            raise AssertionError("a strict read did not catch up")
+        shed = 0
+        for _ in range(5):                  # 5 x 64 > 2 x 128 slots
+            try:
+                on_path(lambda: router.submit_rows(np.arange(FLUSH)))
+            except LoadShedError:
+                shed += 1
+        if shed != 1:
+            raise AssertionError(f"{shed} reads shed, not 1")
+        on_path(router.flush_all)
+        serving["replicas"] = {
+            "watermarks_before": behind, "head_seq": router.head_seq,
+            "stats": router.stats.to_dict()}
+        router.close()
+        del rec, reps
+    serving["kill_s"] = time.perf_counter() - t0
+
+    # the serving path launches row_norm (Z refreshes with correlation),
+    # pairwise_scores (repairs, probes) and scored_topk_gathered (query
+    # flushes, replica reads); scored_topk only the checks' brute force
+    for name in ("row_norm", "pairwise_scores", "scored_topk_gathered"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the serving "
+                                 f"path")
+    if checks["scored_topk"] <= 0:
+        raise AssertionError("scored_topk never launched by the checks' "
+                             "brute force")
+    serving["launches"] = launches
+    serving["launches_checks"] = checks
+    serving["kernel_errs"] = kernel_errs
+
+    def stream_line(tag, r):
+        return (f"{tag}: {r['batches']} batches, promotion "
+                f"{r['promote_host_ms']:.0f} ms, flush p50 "
+                f"{r['flush_ms_p50']:.2f} p95 {r['flush_ms_p95']:.2f} ms, "
+                f"{r['rows_recomputed_per_batch']:.0f} rows recomputed and "
+                f"{r['row_edges_scanned_per_batch']:.0f} row edges scanned "
+                f"a batch, index repair p50 {r['repair_ms_p50']:.2f} ms "
+                f"({r['repair_rows_per_batch']:.0f} rows, "
+                f"{r['bucket_moves_per_batch']:.1f} moved), query flush "
+                f"p50 {r['query_flush_ms_p50']:.3f} ms, device busy "
+                f"{r['busy_share']:.4f} ({r['profiler_device_records']} "
+                f"records; us a batch by kind "
+                + ", ".join(f"{kind} {us:.1f}" for kind, us in
+                            r["device_us_per_batch_by_kind"].items())
+                + f"), refit of the mutated graph: cold cuda "
+                f"{r['cold_cuda_fit_ms']:.0f} ms, warm sparse_torch "
+                f"{r['warm_sparse_torch_fit_ms']:.1f} ms, faster refit / "
+                f"flush p50 {r['refit_over_flush_p50']:.3g}, with an index "
+                f"rebuild ({r['index_rebuild_ms']:.2f} ms) against update "
+                f"and repair p50 {r['update_and_repair_ms_p50']:.2f} ms "
+                f"{r['refit_and_rebuild_over_update_and_repair_p50']:.3g}, "
+                f"Z vs both "
+                f"{fmt_err([r['max_err']])}, full probe == brute "
+                f"force ({r['near_tie_groups']} near-tie groups)")
+
+    kl = serving["kill"]
+    say(f"phase 11 serving under deltas ({card}): partial_fit on "
+        f"sbm-{PARITY_NODES}, {PARITY_BATCHES} batches, 8 settings vs fresh "
+        f"cuda and sparse_torch fits {fmt_err(parity.values())} in "
+        f"{serving['parity_s']:.1f} s | gee_stream {STREAM_DATASET} "
+        + stream_line("no options", plain) + "; "
+        + stream_line("all on", all_on)
+        + f" | kill and recover (sbm-{KILL_NODES}, Lap+Diag): watermark "
+        f"{kl['watermark']}, Z vs uninterrupted max_abs_err "
+        f"{kl['max_abs_err']:.3g}, top 10 == brute force; snapshot "
+        f"{kl['snapshot_ms']:.1f} ms, recovery {kl['recover_total_ms']:.1f} "
+        f"ms (load {kl['recover_load_ms']:.1f}, replay of "
+        f"{kl['recover_replayed_deltas']} deltas "
+        f"{kl['recover_replay_ms']:.1f}) | replicas: caught up from "
+        f"{serving['replicas']['watermarks_before']} to "
+        f"{serving['replicas']['head_seq']}, 1 read shed, router "
+        f"{serving['replicas']['stats']} | launches_serving {launches}, "
+        f"the checks' own {checks}; "
+        f"the path's inputs vs plain: " + ", ".join(
+            f"{name} {fmt_err(e)}" for name, e in kernel_errs.items()))
+    return serving
 
 
 def main() -> int:
@@ -1981,12 +2468,22 @@ def main() -> int:
     stream_launches = stream["launches"]
     report["streaming"] = stream
 
+    # -- phase 11: serving under deltas ---------------------------------------
+    serving = serving_phase(torch, card, all_kernels)
+    serving_launches = serving["launches"]
+    serving_checks = serving["launches_checks"]
+    for name, e in serving["kernel_errs"].items():
+        errs[name].extend(e)
+    report["serving"] = serving
+
     # -- phase 7: the kernels line -------------------------------------------
     # Slice 1's kernels: ms per fit of cl-100k-1d8-l5.  The retrieval
     # kernels: ms per launch at cl-100k-1d8-l5's l2 shapes (pairwise_scores
     # at the index build, the others at a flush).  ``launches`` is the
     # count of the kernel's own main path (phases 4-5 or 8);
-    # ``launches_streaming`` is phase 10's, counted apart.
+    # ``launches_streaming`` is phase 10's and ``launches_serving`` phase
+    # 11's serving path, each counted apart; ``launches_serving_checks``
+    # is phase 11's own checks (brute force, full probe, Z read back).
     line = {"kernels": []}
     rt = rtiming["cl-100k-1d8-l5"]
     for name in list(kernels) + list(rkernels):
@@ -2002,6 +2499,8 @@ def main() -> int:
             "replaces": REPLACES[name],
             "launches": n,
             "launches_streaming": stream_launches[name],
+            "launches_serving": serving_launches[name],
+            "launches_serving_checks": serving_checks[name],
             "max_abs_err": worst(errs[name])[0],
             "max_rel_err": worst(errs[name])[1], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -5,7 +5,9 @@
 In-memory graphs go through ``fit``/``fit_transform``; graphs on disk (any
 ``repro_torch.graph.io`` format) through ``fit_file`` /
 ``fit_transform_file``, which stream windows in bounded device memory.
-``partial_fit`` (incremental updates) is not yet ported.
+``partial_fit`` applies edge and label deltas to an in-memory fit in
+O(|delta| + affected-row edges) (``repro_torch.core.incremental``), and a
+cached similarity index is repaired across them, not rebuilt.
 
 The embedder runs on the card unless the caller asks for the CPU:
 ``device=None`` resolves to ``cuda`` and raises ``RuntimeError`` when no GPU
@@ -23,6 +25,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.chunked import gee_chunked
 from repro_torch.core.gee import GEEOptions
+from repro_torch.core.incremental import (Delta, DirtyRowTracker,
+                                          IncrementalGEE)
 from repro_torch.core.plan import GEEPlan, PreparedGraph
 from repro_torch.graph.containers import EdgeList
 from repro_torch.graph.io import (DEFAULT_CHUNK_EDGES, ChunkedEdgeList,
@@ -61,7 +65,11 @@ class GEEEmbedder:
     _labels: Optional[torch.Tensor] = dataclasses.field(default=None,
                                                         repr=False)
     _z: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
+    _inc: Optional[IncrementalGEE] = dataclasses.field(default=None,
+                                                       repr=False)
     _index: Optional[ClassPartitionedIndex] = dataclasses.field(
+        default=None, repr=False)
+    _index_tracker: Optional[DirtyRowTracker] = dataclasses.field(
         default=None, repr=False)
 
     # -- construction helpers ------------------------------------------------
@@ -89,6 +97,7 @@ class GEEEmbedder:
         self._labels = torch.as_tensor(labels).to(device=device,
                                                   dtype=torch.int32)
         self._z = None
+        self._inc = None
         self._reset_index()
         return self
 
@@ -115,6 +124,7 @@ class GEEEmbedder:
         self._labels = torch.as_tensor(labels).to(device=device,
                                                   dtype=torch.int32)
         self._z = None
+        self._inc = None
         self._reset_index()
         return self
 
@@ -123,10 +133,43 @@ class GEEEmbedder:
         """``fit_file`` + ``transform`` in one call (bounded memory)."""
         return self.fit_file(path, labels, **open_kw).transform()
 
-    def partial_fit(self, delta) -> "GEEEmbedder":
-        """Incremental updates are not yet ported."""
-        raise NotImplementedError(
-            "partial_fit: not yet ported (incremental updates)")
+    def partial_fit(self, delta: Delta) -> "GEEEmbedder":
+        """Apply an ``EdgeDelta`` / ``LabelDelta`` (or a sequence of them)
+        in O(|delta| + affected-row edges) instead of refitting O(E).
+
+        The first call promotes the fitted graph into an ``IncrementalGEE``
+        (host accumulators, Z cached on this embedder's device); from then
+        on ``transform`` serves from its cached Z, whatever ``backend``
+        says.
+        """
+        if self._prepared is None:
+            if self._chunked is not None:
+                raise RuntimeError(
+                    "partial_fit needs the in-memory path: file-backed fits "
+                    "stream from disk and keep no live adjacency.  "
+                    "fit(chunked.to_edge_list(), labels) first if the graph "
+                    "fits in memory.")
+            raise RuntimeError("call fit() first")
+        if self._inc is None:
+            self._inc = IncrementalGEE.from_graph(
+                self._prepared.base, self._labels.cpu().numpy(),
+                self.num_classes, self.options,
+                device=self._labels.device)
+            # Track invalidations so a live similarity index repairs its
+            # buckets instead of rebuilding (see build_index / neighbors).
+            self._index_tracker = DirtyRowTracker(self._inc.n)
+            self._inc.add_dirty_listener(self._index_tracker)
+        self._inc.apply(delta)
+        self._labels = torch.from_numpy(self._inc.labels.copy()).to(
+            self._labels.device)
+        self._z = None
+        return self
+
+    @property
+    def incremental(self) -> Optional[IncrementalGEE]:
+        """The live streaming state (None until ``partial_fit`` is
+        called)."""
+        return self._inc
 
     @property
     def prepared(self) -> Optional[PreparedGraph]:
@@ -137,7 +180,10 @@ class GEEEmbedder:
     def current_edges(self) -> EdgeList:
         """The graph embedded.  For file-backed fits this materializes the
         on-disk list (symmetrized if stored undirected) on this embedder's
-        device: fine for inspection, contrary to the point at scale."""
+        device: fine for inspection, contrary to the point at scale.  Once
+        streaming, the mutated graph."""
+        if self._inc is not None:
+            return self._inc.to_edge_list()
         if self._chunked is not None:
             return self._chunked.to_edge_list(
                 device=resolve_device(self.device))
@@ -153,6 +199,12 @@ class GEEEmbedder:
     def transform(self) -> torch.Tensor:
         if self._prepared is None and self._chunked is None:
             raise RuntimeError("call fit() first")
+        if self._inc is not None:
+            # Refresh only when rows are actually stale, so repeat reads
+            # between deltas serve the cached tensor.
+            if self._z is None or self._inc.num_pending_rows:
+                self._z = self._inc.embedding()
+            return self._z
         if self._z is None:
             if self._chunked is not None:
                 self._z = gee_chunked(
@@ -203,11 +255,15 @@ class GEEEmbedder:
                     pad_multiple: int | None = None) -> ClassPartitionedIndex:
         """Build (and cache) a vertex-similarity index over the embedding,
         on this embedder's device: a :class:`ClassPartitionedIndex` whose
-        coarse cells are the class structure."""
+        coarse cells are the class structure.  After ``partial_fit`` deltas
+        the cached index is repaired in place on the next :meth:`neighbors`
+        call -- stale rows move between buckets; no rebuild."""
         self._index = ClassPartitionedIndex.build(
             self.transform(), self._labels.cpu().numpy(), self.num_classes,
             metric=metric, nprobe=nprobe,
             pad_multiple=pad_multiple or DEFAULT_PAD_MULTIPLE)
+        if self._index_tracker is not None:
+            self._index_tracker.drain()   # fresh index == already repaired
         return self._index
 
     def neighbors(self, query_rows=None, k: int = 10, *, queries=None,
@@ -216,11 +272,13 @@ class GEEEmbedder:
 
         ``query_rows`` queries by vertex id (each vertex is its own best
         hit); ``queries`` passes explicit [Q, K] vectors instead.  Builds
-        the index on first use.  Returns ``(ids [Q, k] int32, scores [Q, k]
+        the index on first use and repairs it after ``partial_fit``
+        deltas.  Returns ``(ids [Q, k] int32, scores [Q, k]
         f32)`` on the embedder's device.
         """
         if self._index is None:
             self.build_index()
+        self._repair_index()
         if queries is not None:
             return self._index.search(queries, k, nprobe=nprobe,
                                       brute_force=brute_force)
@@ -238,6 +296,16 @@ class GEEEmbedder:
 
     def _reset_index(self) -> None:
         self._index = None
+        self._index_tracker = None   # a new graph gets a new tracker
+
+    def _repair_index(self) -> None:
+        """Fold ``partial_fit`` invalidations into the cached index."""
+        if self._index is None or self._index_tracker is None \
+                or not self._index_tracker.pending:
+            return
+        rows = self._index_tracker.drain()
+        z = self.transform()
+        self._index.update_rows(rows, z[torch.from_numpy(rows).to(z.device)])
 
 
 def node_features(edges: "EdgeList | PreparedGraph", labels,

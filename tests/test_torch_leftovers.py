@@ -207,7 +207,7 @@ def test_embedder_file_surface(tmp_path):
                                   np.asarray(jds_.edges.src))
     ids, _ = emb.neighbors([0, 5], k=4)
     assert ids.shape == (2, 4) and [int(i) for i in ids[:, 0]] == [0, 5]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(RuntimeError, match="in-memory path"):
         emb.partial_fit(None)
     os.remove(path + ".labels.npy")
     with pytest.raises(ValueError, match="no labels given"):

@@ -253,11 +253,16 @@ def test_service_matches_reference(embedded):
 
 
 def test_service_rejects_incremental_state(embedded):
+    """An incremental state of another size than the index is refused;
+    without one there is nothing to repair."""
+    from repro_torch.core.incremental import IncrementalGEE
+
     _, t = _indexes(embedded, "l2")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        GEEQueryService(t, inc=object())
+    with pytest.raises(ValueError, match="rows but the index holds"):
+        GEEQueryService(t, inc=IncrementalGEE(t.num_points + 1, 3,
+                                              device="cpu"))
     svc = GEEQueryService(t)
-    assert svc.repair() == 0
+    assert svc.repair() == 0 and svc.stale_rows == 0
 
 
 def test_service_spans_and_metrics(embedded):
