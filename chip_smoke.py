@@ -35,10 +35,19 @@ paths on the paper's 10k-node SBM and on the ``cl-100k-1d8-l5`` stand-in
   and all on, against a cold ``cuda`` fit and a warm ``sparse_torch``
   refit of the mutated graph, with the device time split by kind; a
   ``gee_stream --snapshot-dir`` process SIGKILLed and recovered against an
-  uninterrupted one; two read replicas behind a ``ReplicaRouter``.
+  uninterrupted one; two read replicas behind a ``ReplicaRouter``;
+* the multi-device folds (phase 12): an NCCL process group of one rank,
+  joined in this process, runs ``gee_distributed`` (the scatter on
+  cl-100k-1d8-l5 and sbm-10k, the ``gee_spmm`` plane on sbm-10k) and
+  ``gee_streamed_sharded`` over phase 10's files and an sbm-10k ``.geeb``,
+  under all 8 settings against the in-memory ``cuda`` fit, and the scale
+  file's sharded stream is timed beside phase 10's; P = 4 on sbm-10k is
+  replayed rank by rank on the card (NCCL takes one rank a card), and the
+  shard planes and row blocks are held against the plain kernels.
 
 Each path runs with every kernel's launch count set to 0 just before it and
-read just after; phase 11 counts its own checks apart.  Every kernel is timed with CUDA events beside its bound;
+read just after; phase 11 counts its own checks apart, phase 12 its
+replay.  Every kernel is timed with CUDA events beside its bound;
 the two contraction kernels also per degree bucket with the L2 flushed,
 with the device work one bucket launch enqueues, and a warm fit's device
 time split by prep pass; ``pairwise_scores`` at its three shapes (index
@@ -108,6 +117,9 @@ STREAM_ALL_ON_S = 60.0
 REFIT_REPS = 3
 KILL_NODES = 2000
 KILL_BATCHES = 24
+# the multi-device folds (phase 12): the most device memory one rank's ELL
+# plane may take for the ``cuda`` local backend to be run
+PLANE_BUDGET_BYTES = 8 << 30
 
 
 def say(line: str) -> None:
@@ -1073,11 +1085,12 @@ def kernels_per_call(torch, fn, calls: int = 4, tries: int = 5) -> tuple:
 
 
 def streaming_phase(torch, card, all_kernels, replay, cl_spec,
-                    scale_spec) -> dict:
+                    scale_spec, tmp) -> dict:
     """Phase 10: out-of-core streaming at full size.  ``cl_spec`` is the
     Table 2 stand-in held against the in-memory fits, ``scale_spec`` the
-    file held against ``sparse_torch`` and timed; ``replay`` is phase 8's
-    query replay.  Counts every kernel's launches on the streaming path
+    file held against ``sparse_torch`` and timed, both written into ``tmp``
+    (their paths are returned for phase 12); ``replay`` is phase 8's query
+    replay.  Counts every kernel's launches on the streaming path
     alone: each streamed call runs with every count set to 0 just before it
     and read just after, so the in-memory and SciPy fits it is held against
     add nothing.  Prints one line; returns the numbers."""
@@ -1097,7 +1110,8 @@ def streaming_phase(torch, card, all_kernels, replay, cl_spec,
     from repro_torch.launch.gee_search import recall_at_k
 
     all_on, all_off = GEEEmbedder(num_classes=1).options, GEEOptions()
-    stream = {"card": card}
+    stream = {"card": card, "cl_path": os.path.join(tmp, "cl.geeb"),
+              "scale_path": os.path.join(tmp, "scale.geeb")}
     stream_launches = dict.fromkeys(all_kernels, 0)
 
     def on_path(fn):
@@ -1110,225 +1124,224 @@ def streaming_phase(torch, card, all_kernels, replay, cl_spec,
             stream_launches[name] += k_fn.launches
         return out
 
-    with tempfile.TemporaryDirectory() as tmp:
-        # the Table 2 stand-in and the scale file, one entry per undirected
-        # edge, written by the port's own writer
-        cl_path = os.path.join(tmp, "cl.geeb")
-        t0 = time.perf_counter()
-        synth_to_disk(cl_spec, cl_path, seed=0)
-        stream["cl_write_s"] = time.perf_counter() - t0
-        cl_file = load_file(cl_path)           # materialized on the card
-        cl_k = cl_file.spec.num_classes
-        cl_prep = PreparedGraph(cl_file.edges)
-        cl_labels = cl_file.labels
-        cl_windows = open_edge_list(cl_path).num_windows
+    # the Table 2 stand-in and the scale file, one entry per undirected
+    # edge, written by the port's own writer
+    cl_path = stream["cl_path"]
+    t0 = time.perf_counter()
+    synth_to_disk(cl_spec, cl_path, seed=0)
+    stream["cl_write_s"] = time.perf_counter() - t0
+    cl_file = load_file(cl_path)           # materialized on the card
+    cl_k = cl_file.spec.num_classes
+    cl_prep = PreparedGraph(cl_file.edges)
+    cl_labels = cl_file.labels
+    cl_windows = open_edge_list(cl_path).num_windows
 
-        t0 = time.perf_counter()
-        parity = {}
-        for opts in ALL_OPTION_SETTINGS:
-            z_s = on_path(lambda: GEEEmbedder(
-                num_classes=cl_k, options=opts).fit_transform_file(cl_path))
-            z_m = GEEEmbedder(num_classes=cl_k, options=opts,
-                              backend="cuda").fit_transform(cl_prep,
-                                                            cl_labels)
-            if z_s.shape != (cl_file.spec.num_nodes, cl_k) \
-                    or not bool(torch.isfinite(z_s).all()):
-                raise AssertionError(f"streamed {opts.tag()}: bad output")
-            parity[opts.tag()] = max_err(torch, z_s, z_m)
-        # the default setting against the host SciPy reference
-        src, dst, w = cl_file.edges.valid_arrays()
-        z_host = gee_scipy(src, dst, w, cl_labels, cl_k, all_on)
+    t0 = time.perf_counter()
+    parity = {}
+    for opts in ALL_OPTION_SETTINGS:
         z_s = on_path(lambda: GEEEmbedder(
-            num_classes=cl_k).fit_transform_file(cl_path))
-        scipy_stream = max_err(torch, z_s.cpu(), torch.from_numpy(z_host))
-        # prefetch depths 0 and 2 on the same file
-        by_depth = {d: on_path(lambda: gee_chunked(
-            open_edge_list(cl_path), cl_labels, cl_k, all_on,
-            prefetch_windows=d)) for d in (0, DEFAULT_PREFETCH_DEPTH)}
-        depth_err = max_err(torch, by_depth[0],
-                            by_depth[DEFAULT_PREFETCH_DEPTH])
-        z_m = GEEEmbedder(num_classes=cl_k, backend="cuda").fit_transform(
-            cl_prep, cl_labels)
-        depth_vs_mem = [max_err(torch, z, z_m) for z in by_depth.values()]
-        # retrieval over the streamed embedding: the index build, replays at
-        # the default nprobe and at full probe, and brute force
-        emb = on_path(lambda: GEEEmbedder(num_classes=cl_k).fit_file(
-            cl_path))
-        s_index = on_path(emb.build_index)
-        rows = np.random.default_rng(11).integers(
-            0, cl_file.spec.num_nodes, N_QUERIES)
-        ids_d, sc_d, _, _ = on_path(lambda: replay(s_index, rows))
-        ids_f, sc_f, _, _ = on_path(lambda: replay(
-            s_index, rows, nprobe=s_index.num_cells))
-        zq = s_index.z[torch.from_numpy(rows).to(DEVICE)]
-        got = on_path(lambda: [
-            s_index.search(zq[lo:lo + FLUSH], TOP_K, brute_force=True)
-            for lo in range(0, zq.shape[0], FLUSH)])
-        ids_b = torch.cat([i for i, _ in got]).cpu().numpy()
-        sc_b = torch.cat([s_ for _, s_ in got]).cpu().numpy()
-        if not np.array_equal(sc_f, sc_b):
-            raise AssertionError("streamed index: full probe != brute force")
-        s_recall = recall_at_k(ids_d, sc_d, ids_b, sc_b)
-        s_nprobe = s_index.nprobe
+            num_classes=cl_k, options=opts).fit_transform_file(cl_path))
+        z_m = GEEEmbedder(num_classes=cl_k, options=opts,
+                          backend="cuda").fit_transform(cl_prep,
+                                                        cl_labels)
+        if z_s.shape != (cl_file.spec.num_nodes, cl_k) \
+                or not bool(torch.isfinite(z_s).all()):
+            raise AssertionError(f"streamed {opts.tag()}: bad output")
+        parity[opts.tag()] = max_err(torch, z_s, z_m)
+    # the default setting against the host SciPy reference
+    src, dst, w = cl_file.edges.valid_arrays()
+    z_host = gee_scipy(src, dst, w, cl_labels, cl_k, all_on)
+    z_s = on_path(lambda: GEEEmbedder(
+        num_classes=cl_k).fit_transform_file(cl_path))
+    scipy_stream = max_err(torch, z_s.cpu(), torch.from_numpy(z_host))
+    # prefetch depths 0 and 2 on the same file
+    by_depth = {d: on_path(lambda: gee_chunked(
+        open_edge_list(cl_path), cl_labels, cl_k, all_on,
+        prefetch_windows=d)) for d in (0, DEFAULT_PREFETCH_DEPTH)}
+    depth_err = max_err(torch, by_depth[0],
+                        by_depth[DEFAULT_PREFETCH_DEPTH])
+    z_m = GEEEmbedder(num_classes=cl_k, backend="cuda").fit_transform(
+        cl_prep, cl_labels)
+    depth_vs_mem = [max_err(torch, z, z_m) for z in by_depth.values()]
+    # retrieval over the streamed embedding: the index build, replays at
+    # the default nprobe and at full probe, and brute force
+    emb = on_path(lambda: GEEEmbedder(num_classes=cl_k).fit_file(
+        cl_path))
+    s_index = on_path(emb.build_index)
+    rows = np.random.default_rng(11).integers(
+        0, cl_file.spec.num_nodes, N_QUERIES)
+    ids_d, sc_d, _, _ = on_path(lambda: replay(s_index, rows))
+    ids_f, sc_f, _, _ = on_path(lambda: replay(
+        s_index, rows, nprobe=s_index.num_cells))
+    zq = s_index.z[torch.from_numpy(rows).to(DEVICE)]
+    got = on_path(lambda: [
+        s_index.search(zq[lo:lo + FLUSH], TOP_K, brute_force=True)
+        for lo in range(0, zq.shape[0], FLUSH)])
+    ids_b = torch.cat([i for i, _ in got]).cpu().numpy()
+    sc_b = torch.cat([s_ for _, s_ in got]).cpu().numpy()
+    if not np.array_equal(sc_f, sc_b):
+        raise AssertionError("streamed index: full probe != brute force")
+    s_recall = recall_at_k(ids_d, sc_d, ids_b, sc_b)
+    s_nprobe = s_index.nprobe
+    torch.cuda.synchronize()
+    stream["cl_s"] = time.perf_counter() - t0
+    stream.update(cl_parity=parity, cl_scipy=scipy_stream,
+                  cl_depth_err=depth_err, cl_depth_vs_mem=depth_vs_mem,
+                  cl_windows=cl_windows, cl_recall=s_recall,
+                  cl_nprobe=s_nprobe)
+    del cl_prep, cl_file, z_s, z_m, by_depth, emb, s_index
+
+    # the scale file: 2,000,000 nodes, 50,000,000 undirected entries
+    spec = scale_spec
+    sc_path = stream["scale_path"]
+    t0 = time.perf_counter()
+    synth_to_disk(spec, sc_path, seed=0)
+    stream["scale_write_s"] = time.perf_counter() - t0
+    sc_src = open_edge_list(sc_path)
+    sc_labels = np.load(sc_path + ".labels.npy")
+    n, k, window = spec.num_nodes, spec.num_classes, sc_src.window_edges
+    depth = DEFAULT_PREFETCH_DEPTH
+    # what the streamed fit may hold on the card, whatever E is: Z's
+    # float64 accumulator, its f32 rounding and the epilogue's two
+    # [N, K] results (5 f32 units), six [N] f32 units (labels, the
+    # float64 degrees, their f32 rounding, dinv), the windows in flight
+    # (the one folded, ``depth`` queued, one being staged and one more
+    # the reader may hold; 12 B an entry), a both-directions window's
+    # fold temporaries (<= 160 B an entry) and 64 MiB of allocator
+    # rounding
+    bound = (5 * 4 * n * k + 6 * 4 * n + (depth + 3) * 12 * window
+             + 2 * window * 160 + (64 << 20))
+
+    def streamed(opts):
+        return on_path(lambda: gee_chunked(sc_src, sc_labels, k, opts))
+
+    scale = {"windows": sc_src.num_windows, "window": window,
+             "bound_bytes": bound}
+    for opts in (all_off, all_on):
         torch.cuda.synchronize()
-        stream["cl_s"] = time.perf_counter() - t0
-        stream.update(cl_parity=parity, cl_scipy=scipy_stream,
-                      cl_depth_err=depth_err, cl_depth_vs_mem=depth_vs_mem,
-                      cl_windows=cl_windows, cl_recall=s_recall,
-                      cl_nprobe=s_nprobe)
-        del cl_prep, cl_file, z_s, z_m, by_depth, emb, s_index
-
-        # the scale file: 2,000,000 nodes, 50,000,000 undirected entries
-        spec = scale_spec
-        sc_path = os.path.join(tmp, "scale.geeb")
-        t0 = time.perf_counter()
-        synth_to_disk(spec, sc_path, seed=0)
-        stream["scale_write_s"] = time.perf_counter() - t0
-        sc_src = open_edge_list(sc_path)
-        sc_labels = np.load(sc_path + ".labels.npy")
-        n, k, window = spec.num_nodes, spec.num_classes, sc_src.window_edges
-        depth = DEFAULT_PREFETCH_DEPTH
-        # what the streamed fit may hold on the card, whatever E is: Z's
-        # float64 accumulator, its f32 rounding and the epilogue's two
-        # [N, K] results (5 f32 units), six [N] f32 units (labels, the
-        # float64 degrees, their f32 rounding, dinv), the windows in flight
-        # (the one folded, ``depth`` queued, one being staged and one more
-        # the reader may hold; 12 B an entry), a both-directions window's
-        # fold temporaries (<= 160 B an entry) and 64 MiB of allocator
-        # rounding
-        bound = (5 * 4 * n * k + 6 * 4 * n + (depth + 3) * 12 * window
-                 + 2 * window * 160 + (64 << 20))
-
-        def streamed(opts):
-            return on_path(lambda: gee_chunked(sc_src, sc_labels, k, opts))
-
-        scale = {"windows": sc_src.num_windows, "window": window,
-                 "bound_bytes": bound}
-        for opts in (all_off, all_on):
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            z_s = streamed(opts)
-            torch.cuda.synchronize()
-            peak_s = torch.cuda.max_memory_allocated() - base
-            if peak_s >= bound:
-                raise AssertionError(f"streamed peak {peak_s} B >= bound "
-                                     f"{bound} B")
-            times = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                streamed(opts)
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-            t_med = float(np.median(times))
-            del z_s
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            sc_mem = PreparedGraph(load_file(sc_path).edges)
-            z_m = GEEPlan.build(sc_mem, k, opts,
-                                backend="sparse_torch").execute(sc_labels)
-            torch.cuda.synchronize()
-            peak_m = torch.cuda.max_memory_allocated() - base
-            err = max_err(torch, streamed(opts), z_m)
-            del sc_mem, z_m
-            scale[opts.tag()] = {
-                "max_err": err, "host_ms_median_of_3": t_med * 1e3,
-                "host_ms": [t * 1e3 for t in times],
-                "edges_per_s": 2 * spec.num_edges / t_med,
-                "peak_bytes_streamed": peak_s,
-                "peak_bytes_in_memory": peak_m}
-
-        # where a streamed fit's time goes (no options, one pass, host
-        # clock, median of 3): the same fit with synchronous copies, the
-        # pipeline alone (read, ring fill, copy; nothing folded) and the
-        # fold alone over the whole file already on the card
-        def ingest():
-            for _ in prefetch_windows(sc_src, depth, device=DEVICE).windows():
-                pass
-
-        resident = ChunkedEdgeList(
-            src=torch.from_numpy(np.asarray(sc_src.src)).to(DEVICE),
-            dst=torch.from_numpy(np.asarray(sc_src.dst)).to(DEVICE),
-            weight=torch.from_numpy(np.asarray(sc_src.weight)).to(DEVICE),
-            num_nodes=n, undirected=True)
-        scale["split_ms"] = {
-            "depth_0": host_ms(torch, lambda: gee_chunked(
-                sc_src, sc_labels, k, all_off, prefetch_windows=0), 3),
-            "pipeline_alone": host_ms(torch, ingest, 3),
-            "fold_alone_resident": host_ms(torch, lambda: gee_chunked(
-                resident, sc_labels, k, all_off), 3)}
-        del resident
-
-        # the device's busy share over one streamed fit (union of the
-        # kernels' and copies' intervals that torch.profiler records, over
-        # the host-clock time of the fit under the profiler)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        z_s = streamed(opts)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        peak_s = torch.cuda.max_memory_allocated() - base
+        if peak_s >= bound:
+            raise AssertionError(f"streamed peak {peak_s} B >= bound "
+                                 f"{bound} B")
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
-            streamed(all_on)
+            streamed(opts)
             torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        busy_us, records = device_busy(torch, prof)
-        scale["busy_share_profiler"] = busy_us / wall_us
-        scale["profiler_device_records"] = records
+            times.append(time.perf_counter() - t0)
+        t_med = float(np.median(times))
+        del z_s
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sc_mem = PreparedGraph(load_file(sc_path).edges)
+        z_m = GEEPlan.build(sc_mem, k, opts,
+                            backend="sparse_torch").execute(sc_labels)
+        torch.cuda.synchronize()
+        peak_m = torch.cuda.max_memory_allocated() - base
+        err = max_err(torch, streamed(opts), z_m)
+        del sc_mem, z_m
+        scale[opts.tag()] = {
+            "max_err": err, "host_ms_median_of_3": t_med * 1e3,
+            "host_ms": [t * 1e3 for t in times],
+            "edges_per_s": 2 * spec.num_edges / t_med,
+            "peak_bytes_streamed": peak_s,
+            "peak_bytes_in_memory": peak_m}
 
-        # the fold's device time for one window, by CUDA events: the H2D
-        # copy from pinned memory, the degree fold, the class fold
-        w0 = next(iter(sc_src.windows()))
-        pinned = [t.pin_memory() for t in (w0.src, w0.dst, w0.weight)]
-        dev = [t.to(DEVICE) for t in pinned]
-        lab = torch.from_numpy(sc_labels).to(DEVICE)
-        winv = class_weight_inv(lab, k)
-        dinv = torch.rand(n, device=DEVICE)
-        deg = torch.zeros(n, device=DEVICE)
-        z = torch.zeros(n * k, device=DEVICE)
-        scale["window_copy_ms"] = gpu_ms(
-            torch, lambda: [t.to(DEVICE, non_blocking=True) for t in pinned])
-        scale["window_fold_degrees_ms"] = gpu_ms(
-            torch, lambda: fold_degrees(deg, *dev, undirected=True))
-        scale["window_fold_z_ms"] = gpu_ms(
-            torch, lambda: fold_z(z, *dev, lab, winv, dinv, num_classes=k,
-                                  undirected=True))
-        # all on: two passes, so two copies a window
-        scale["busy_share_events"] = (
-            sc_src.num_windows * (2 * scale["window_copy_ms"]
-                                  + scale["window_fold_degrees_ms"]
-                                  + scale["window_fold_z_ms"])
-            / scale[all_on.tag()]["host_ms_median_of_3"])
-        stream["scale"] = scale
+    # where a streamed fit's time goes (no options, one pass, host
+    # clock, median of 3): the same fit with synchronous copies, the
+    # pipeline alone (read, ring fill, copy; nothing folded) and the
+    # fold alone over the whole file already on the card
+    def ingest():
+        for _ in prefetch_windows(sc_src, depth, device=DEVICE).windows():
+            pass
 
-        # the entry points, each in a process of its own
-        env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
-        run = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.gee_run",
-             "--edge-file", cl_path, "--lap", "--diag", "--cor", "--verify"],
-            capture_output=True, text=True, timeout=600, env=env, cwd=REPO)
-        if run.returncode != 0 or \
-                "0 entries off the row tolerance: ok" not in run.stdout:
-            raise AssertionError(f"gee_run --edge-file failed "
-                                 f"(rc {run.returncode}):\n{run.stdout}\n"
-                                 f"{run.stderr[-4000:]}")
-        report_path = os.path.join(tmp, "gee_search.json")
-        search = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.gee_search",
-             "--edge-file", cl_path, "--nprobe", str(cl_k), "--queries",
-             str(N_QUERIES), "--json", report_path],
-            capture_output=True, text=True, timeout=600, env=env, cwd=REPO)
-        if search.returncode != 0:
-            raise AssertionError(f"gee_search --edge-file failed "
-                                 f"(rc {search.returncode}):\n"
-                                 f"{search.stdout}\n{search.stderr[-4000:]}")
-        with open(report_path) as f:
-            search_report = json.load(f)
-        if search_report["recall_at_k"] != 1.0:
-            raise AssertionError(f"gee_search --edge-file at full probe: "
-                                 f"recall {search_report['recall_at_k']}")
-        stream["gee_run_stdout"] = run.stdout
-        stream["gee_search"] = {k_: v for k_, v in search_report.items()
-                                if k_ != "service_stats"}
+    resident = ChunkedEdgeList(
+        src=torch.from_numpy(np.asarray(sc_src.src)).to(DEVICE),
+        dst=torch.from_numpy(np.asarray(sc_src.dst)).to(DEVICE),
+        weight=torch.from_numpy(np.asarray(sc_src.weight)).to(DEVICE),
+        num_nodes=n, undirected=True)
+    scale["split_ms"] = {
+        "depth_0": host_ms(torch, lambda: gee_chunked(
+            sc_src, sc_labels, k, all_off, prefetch_windows=0), 3),
+        "pipeline_alone": host_ms(torch, ingest, 3),
+        "fold_alone_resident": host_ms(torch, lambda: gee_chunked(
+            resident, sc_labels, k, all_off), 3)}
+    del resident
+
+    # the device's busy share over one streamed fit (union of the
+    # kernels' and copies' intervals that torch.profiler records, over
+    # the host-clock time of the fit under the profiler)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        streamed(all_on)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us, records = device_busy(torch, prof)
+    scale["busy_share_profiler"] = busy_us / wall_us
+    scale["profiler_device_records"] = records
+
+    # the fold's device time for one window, by CUDA events: the H2D
+    # copy from pinned memory, the degree fold, the class fold
+    w0 = next(iter(sc_src.windows()))
+    pinned = [t.pin_memory() for t in (w0.src, w0.dst, w0.weight)]
+    dev = [t.to(DEVICE) for t in pinned]
+    lab = torch.from_numpy(sc_labels).to(DEVICE)
+    winv = class_weight_inv(lab, k)
+    dinv = torch.rand(n, device=DEVICE)
+    deg = torch.zeros(n, device=DEVICE)
+    z = torch.zeros(n * k, device=DEVICE)
+    scale["window_copy_ms"] = gpu_ms(
+        torch, lambda: [t.to(DEVICE, non_blocking=True) for t in pinned])
+    scale["window_fold_degrees_ms"] = gpu_ms(
+        torch, lambda: fold_degrees(deg, *dev, undirected=True))
+    scale["window_fold_z_ms"] = gpu_ms(
+        torch, lambda: fold_z(z, *dev, lab, winv, dinv, num_classes=k,
+                              undirected=True))
+    # all on: two passes, so two copies a window
+    scale["busy_share_events"] = (
+        sc_src.num_windows * (2 * scale["window_copy_ms"]
+                              + scale["window_fold_degrees_ms"]
+                              + scale["window_fold_z_ms"])
+        / scale[all_on.tag()]["host_ms_median_of_3"])
+    stream["scale"] = scale
+
+    # the entry points, each in a process of its own
+    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.gee_run",
+         "--edge-file", cl_path, "--lap", "--diag", "--cor", "--verify"],
+        capture_output=True, text=True, timeout=600, env=env, cwd=REPO)
+    if run.returncode != 0 or \
+            "0 entries off the row tolerance: ok" not in run.stdout:
+        raise AssertionError(f"gee_run --edge-file failed "
+                             f"(rc {run.returncode}):\n{run.stdout}\n"
+                             f"{run.stderr[-4000:]}")
+    report_path = os.path.join(tmp, "gee_search.json")
+    search = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.gee_search",
+         "--edge-file", cl_path, "--nprobe", str(cl_k), "--queries",
+         str(N_QUERIES), "--json", report_path],
+        capture_output=True, text=True, timeout=600, env=env, cwd=REPO)
+    if search.returncode != 0:
+        raise AssertionError(f"gee_search --edge-file failed "
+                             f"(rc {search.returncode}):\n"
+                             f"{search.stdout}\n{search.stderr[-4000:]}")
+    with open(report_path) as f:
+        search_report = json.load(f)
+    if search_report["recall_at_k"] != 1.0:
+        raise AssertionError(f"gee_search --edge-file at full probe: "
+                             f"recall {search_report['recall_at_k']}")
+    stream["gee_run_stdout"] = run.stdout
+    stream["gee_search"] = {k_: v for k_, v in search_report.items()
+                            if k_ != "service_stats"}
     for name in ("row_norm", "pairwise_scores", "scored_topk_gathered"):
         if stream_launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the streaming "
@@ -1801,6 +1814,354 @@ def serving_phase(torch, card, all_kernels) -> dict:
         f"the path's inputs vs plain: " + ", ".join(
             f"{name} {fmt_err(e)}" for name, e in kernel_errs.items()))
     return serving
+
+
+def window_plane_bytes(path, p: int) -> int:
+    """The largest device plane a window of an edge file packs into for the
+    ``cuda`` local backend at P ranks, 20 B a slot (cols, vals, scaled
+    vals, ylab, contrib); the shape is the packer's own rule
+    (``repro_torch.graph.partition.plane_width``)."""
+    from repro_torch.core.fold import pad_nodes
+    from repro_torch.graph.io import open_edge_list
+    from repro_torch.graph.partition import directed_entries, plane_width
+
+    ch = open_edge_list(path)
+    most = 0
+    for lo in range(0, ch.num_edges, ch.window_edges):
+        hi = min(lo + ch.window_edges, ch.num_edges)
+        src, _, w = directed_entries(
+            np.asarray(ch.src[lo:hi]), np.asarray(ch.dst[lo:hi]),
+            np.asarray(ch.weight[lo:hi]), ch.undirected)
+        most = max(most, plane_width(src, w, p, laddered=True))
+    return pad_nodes(ch.num_nodes, p) * most * 20
+
+
+def plane_bytes(edges, p: int) -> int:
+    """The device plane ``gee_distributed(local_backend="cuda")`` packs for
+    one rank at P ranks, 20 B a slot."""
+    from repro_torch.core.fold import pad_nodes
+    from repro_torch.graph.partition import plane_width
+
+    src, _, w = edges.valid_arrays()
+    return pad_nodes(edges.num_nodes, p) * plane_width(src, w, p) * 20
+
+
+def sharded_phase(torch, card, all_kernels, graphs, prepared, tmp,
+                  stream) -> dict:
+    """Phase 12: the multi-device folds on one card.
+
+    (a) A real NCCL process group of one rank, joined in this process:
+    ``gee_distributed`` with both local backends, ``gee_streamed_sharded``
+    over phase 10's ``.geeb`` files and an sbm-10k one, each held against
+    the in-memory ``cuda`` fit of the same graph, and the scale file's
+    streamed fit timed beside phase 10's ``gee_chunked``.  (b) P = 4 on
+    sbm-10k, each rank's body in turn on this card
+    (``repro_torch.core.distributed.replay_ranks``: NCCL takes one rank a
+    card), held against the same fits and against (a).  Kernel 1 is held
+    against its plain version on the shard planes, kernel 2 on the row
+    blocks; each kernel's launches on the sharded calls alone are
+    ``launches_sharded`` (the replay's are counted apart).  A plane that
+    would pass ``PLANE_BUDGET_BYTES`` on the card is not run, and the phase
+    says which and why.  Prints one line; returns the numbers."""
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as tdist
+    from repro_torch.core import fold as fold_mod
+    from repro_torch.core.api import GEEEmbedder
+    from repro_torch.core.chunked import gee_chunked
+    from repro_torch.core.fold import (gather_rows, gee_streamed_sharded,
+                                       pad_nodes, world_size)
+    from repro_torch.core.gee import ALL_OPTION_SETTINGS, GEEOptions
+    from repro_torch.core.plan import GEEPlan, PreparedGraph
+    from repro_torch.graph.datasets import load_file
+    from repro_torch.graph.io import (ChunkedEdgeList, open_window_parallel,
+                                      save_edge_list, save_labels)
+    from repro_torch.graph.partition import shard_edges, shard_edges_to_ell
+    from repro_torch.kernels import row_norm as row_norm_mod
+    from repro_torch.kernels.gee_spmm import gee_spmm
+    from repro_torch.kernels.ref import gee_spmm_ref, row_norm_ref
+    from repro_torch.kernels.row_norm import row_norm
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.obs.cli import plan_span_coverage
+
+    all_on = GEEOptions(laplacian=True, diag_aug=True, correlation=True)
+    all_off = GEEOptions()
+    out = {"card": card}
+    launches = dict.fromkeys(all_kernels, 0)
+    replay_launches = dict.fromkeys(all_kernels, 0)
+
+    def counted(tally, fn):
+        for k_fn in all_kernels.values():
+            k_fn.launches = 0
+        res = fn()
+        torch.cuda.synchronize()
+        for name, k_fn in all_kernels.items():
+            tally[name] += k_fn.launches
+        return res
+
+    def cuda_fit(prep, labels, k, opts):
+        return GEEEmbedder(num_classes=k, options=opts,
+                           backend="cuda").fit_transform(prep, labels)
+
+    # the planes each run would put on the card, reckoned before any runs
+    sbm_edges, sbm_labels, sbm_k = graphs["sbm-10k"]
+    cl_edges, cl_labels, cl_k = graphs["cl-100k-1d8-l5"]
+    sbm_path = os.path.join(tmp, "sbm.geeb")
+    save_edge_list(sbm_path, ChunkedEdgeList.from_edge_list(sbm_edges))
+    save_labels(sbm_path, sbm_labels)
+    plan_b = {"sbm-10k P=1": plane_bytes(sbm_edges, 1),
+              "sbm-10k P=4": plane_bytes(sbm_edges, 4),
+              "cl-100k-1d8-l5 P=1": plane_bytes(cl_edges, 1),
+              "sbm-10k .geeb P=1": window_plane_bytes(sbm_path, 1),
+              "cl-100k-1d8-l5 .geeb P=1": window_plane_bytes(
+                  stream["cl_path"], 1),
+              "scale-2m-50m .geeb P=1": window_plane_bytes(
+                  stream["scale_path"], 1)}
+    skipped = {name: f"plane of {b / 2**30:.1f} GiB on the card (budget "
+                     f"{PLANE_BUDGET_BYTES / 2**30:.0f} GiB)"
+               for name, b in plan_b.items() if b > PLANE_BUDGET_BYTES}
+    for name in ("sbm-10k P=1", "sbm-10k P=4", "sbm-10k .geeb P=1"):
+        if name in skipped:
+            raise AssertionError(f"{name}: {skipped[name]}")
+    out["plane_bytes"], out["cuda_backend_not_run"] = plan_b, skipped
+
+    store = os.path.join(tmp, "nccl_store")
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    part_s = {}
+    t0 = time.perf_counter()
+    try:
+        if world_size() != 1 or dist.get_backend() != "nccl":
+            raise AssertionError("not an NCCL group of one rank")
+        errs = {}
+        # (a) gee_distributed on both graphs, against the in-memory cuda fit
+        runs = (("cl-100k-1d8-l5", "segment_sum"), ("sbm-10k", "segment_sum"),
+                ("sbm-10k", "cuda"))
+        one_rank = {}
+        for g, lb in runs:
+            edges, labels, k = graphs[g]
+            e = []
+            for opts in ALL_OPTION_SETTINGS:
+                z = counted(launches, lambda: gather_rows(
+                    tdist.gee_distributed(edges, labels, k, opts,
+                                          local_backend=lb),
+                    edges.num_nodes))
+                if z.shape != (edges.num_nodes, k) \
+                        or not bool(torch.isfinite(z).all()):
+                    raise AssertionError(f"{g} {lb} {opts.tag()}: bad "
+                                         f"output")
+                e.append(max_err(torch, z,
+                                 cuda_fit(prepared[g], labels, k, opts)))
+                if g == "sbm-10k" and lb == "cuda":
+                    one_rank[opts.tag()] = z
+            errs[f"distributed {g} {lb}"] = worst(e)
+        part_s["gee_distributed"] = time.perf_counter() - t0
+        # (a) gee_streamed_sharded over edge files: phase 10's cl-100k file
+        # (segment_sum; its graph, drawn by window, is not synth_like's)
+        # and sbm-10k's directed entries (both local backends)
+        cl_file = load_file(stream["cl_path"])
+        cl_prep = PreparedGraph(cl_file.edges)
+        files = ((stream["cl_path"], cl_prep, cl_file.labels, cl_k,
+                  ("segment_sum",)),
+                 (sbm_path, prepared["sbm-10k"], sbm_labels, sbm_k,
+                  ("segment_sum", "cuda")))
+        for path, prep, labels, k, backends in files:
+            src = open_window_parallel(path, 1)
+            for lb in backends:
+                e = []
+                for opts in ALL_OPTION_SETTINGS:
+                    z = counted(launches, lambda: gather_rows(
+                        gee_streamed_sharded(src, labels, k, opts,
+                                             local_backend=lb),
+                        src.num_nodes))
+                    e.append(max_err(torch, z,
+                                     cuda_fit(prep, labels, k, opts)))
+                errs[f"streamed {os.path.basename(path)} {lb}"] = worst(e)
+        del cl_file, cl_prep
+        part_s["gee_streamed_sharded files"] = \
+            time.perf_counter() - t0 - sum(part_s.values())
+        # (a) the scale file, no options and all on: the streamed sharded
+        # fit (median of 3, host clock) beside phase 10's gee_chunked and
+        # beside gee_chunked timed here in turn (chunked, sharded, sharded,
+        # chunked, ...: a streamed fit's time swings between points of a
+        # process)
+        sc_src = open_window_parallel(stream["scale_path"], 1)
+        sc_labels = np.load(stream["scale_path"] + ".labels.npy")
+        sc_k = int(sc_labels.max()) + 1
+        scale = {}
+        for opts in (all_off, all_on):
+            def fit():
+                return gather_rows(gee_streamed_sharded(
+                    sc_src, sc_labels, sc_k, opts), sc_src.num_nodes)
+
+            def chunked():
+                return gee_chunked(sc_src, sc_labels, sc_k, opts)
+            z = counted(launches, fit)
+            err = max_err(torch, z, chunked())
+            times = {"sharded": [], "chunked": []}
+            for order in (("chunked", "sharded"), ("sharded", "chunked"),
+                          ("chunked", "sharded")):
+                for name in order:
+                    times[name].append(host_ms(torch, (
+                        lambda: counted(launches, fit)) if name == "sharded"
+                        else chunked, 1))
+            scale[opts.tag()] = {
+                "max_err_vs_chunked": err,
+                "host_ms_median_of_3": float(np.median(times["sharded"])),
+                "host_ms": times["sharded"],
+                "chunked_host_ms_median_of_3": float(
+                    np.median(times["chunked"])),
+                "chunked_host_ms": times["chunked"],
+                "chunked_host_ms_median_of_3_phase_10":
+                    stream["scale"][opts.tag()]["host_ms_median_of_3"]}
+        out["scale"] = scale
+        part_s["scale"] = time.perf_counter() - t0 - sum(part_s.values())
+        # the plan's stage timings: each multi-device backend executed
+        # through GEEPlan under the tracer lists every stage's ms; the
+        # same execute untraced (median of 3) is the instrumentation's
+        # yardstick
+        tracer = obs_trace.Tracer()
+        prev_tracer = obs_trace.set_tracer(tracer)
+        try:
+            stages = {}
+            for b in ("streamed_sharded", "distributed"):
+                plan = GEEPlan.build(prepared["sbm-10k"], sbm_k, all_on,
+                                     backend=b)
+                untraced = host_ms(torch, lambda: counted(
+                    launches, lambda: plan.execute(sbm_labels)), 3)
+                tracer.enable()
+                counted(launches, lambda: plan.execute(sbm_labels))
+                tracer.disable()
+                names = [st.name for st in plan.stages]
+                if set(plan.last_timings) != set(names) | {"total_ms"}:
+                    raise AssertionError(f"{b}: stage timings "
+                                         f"{plan.last_timings} miss stages "
+                                         f"{names}")
+                stages[b] = {"timings_ms": plan.last_timings,
+                             "untraced_ms_median_of_3": untraced,
+                             "coverage": plan_span_coverage(tracer),
+                             "describe": plan.describe(timings=True)}
+        finally:
+            obs_trace.set_tracer(prev_tracer)
+        out["plan_stages"] = stages
+        nccl_s = time.perf_counter() - t0
+        part_s["plan stages"] = nccl_s - sum(part_s.values())
+
+        # (b) P = 4 on sbm-10k: each rank's body in turn on this card
+        t1 = time.perf_counter()
+        n_pad = pad_nodes(sbm_edges.num_nodes, 4)
+        pre = shard_edges(sbm_edges, 4, device="cpu")
+        cols, vals = shard_edges_to_ell(sbm_edges, 4, n_pad, device=DEVICE)
+        replay_shards = {
+            "segment_sum": [tdist.local_shard(
+                pre, 4, r, local_backend="segment_sum", num_rows=n_pad,
+                pre_sharded=True, device=DEVICE) for r in range(4)],
+            "cuda": [(cols[lo:lo + n_pad], vals[lo:lo + n_pad])
+                     for lo in range(0, 4 * n_pad, n_pad)]}
+        for lb, shards in replay_shards.items():
+            e, e1 = [], []
+            for opts in ALL_OPTION_SETTINGS:
+                z = counted(replay_launches, lambda: tdist.replay_ranks(
+                    shards, sbm_labels, sbm_k, opts,
+                    num_nodes=sbm_edges.num_nodes))
+                e.append(max_err(torch, z, cuda_fit(
+                    prepared["sbm-10k"], sbm_labels, sbm_k, opts)))
+                e1.append(max_err(torch, z, one_rank[opts.tag()]))
+            errs[f"replay P=4 sbm-10k {lb}"] = worst(e)
+            errs[f"replay P=4 sbm-10k {lb} vs NCCL P=1 cuda"] = worst(e1)
+        replay_s = time.perf_counter() - t1
+
+        # the kernels against their plain versions on this path's inputs:
+        # the P = 1 plane, a P = 4 rank's plane, every window's plane of
+        # the sbm-10k stream, and the row blocks
+        with Recorder(fold_mod, "gee_spmm", keep=2) as rec_p, \
+                Recorder(row_norm_mod, "row_norm", keep=2) as rec_n:
+            tdist.gee_distributed(sbm_edges, sbm_labels, sbm_k, all_on,
+                                  local_backend="cuda")
+            tdist.replay_ranks(replay_shards["cuda"], sbm_labels, sbm_k,
+                               all_on, num_nodes=sbm_edges.num_nodes)
+        if len(rec_p.calls) < 2:
+            raise AssertionError("the shard planes were not captured")
+        with Recorder(fold_mod, "gee_spmm") as rec_w:
+            gee_streamed_sharded(open_window_parallel(sbm_path, 1),
+                                 sbm_labels, sbm_k, all_on,
+                                 local_backend="cuda")
+        if not rec_w.calls:
+            raise AssertionError("the stream's window planes were not "
+                                 "captured")
+        kernel_errs = {"gee_spmm": [], "row_norm": []}
+        planes = {}
+        named = list(zip(rec_p.calls, ("P=1", "P=4 rank 0")))
+        widest = max(range(len(rec_w.calls)),
+                     key=lambda i: rec_w.calls[i][0][0].shape[1])
+        for i, call in enumerate(rec_w.calls):
+            ylab, contrib, k = call[0]
+            if i != widest:        # every window held, the widest timed
+                kernel_errs["gee_spmm"].append(max_err(
+                    torch, gee_spmm(ylab, contrib, k),
+                    gee_spmm_ref(ylab, contrib, k)))
+        named.append((rec_w.calls[widest], f"stream window {widest} of "
+                      f"{len(rec_w.calls)} (the widest)"))
+        for (args, _), name in named:
+            ylab, contrib, k = args
+            kernel_errs["gee_spmm"].append(max_err(
+                torch, gee_spmm(ylab, contrib, k),
+                gee_spmm_ref(ylab, contrib, k)))
+            slots = ylab.numel()
+            planes[name] = {
+                "shape": list(ylab.shape),
+                "ms": gpu_ms(torch, lambda: gee_spmm(ylab, contrib, k)),
+                "plain_ms": gpu_ms(torch, lambda: gee_spmm_ref(
+                    ylab, contrib, k), reps=5),
+                "bound_ms": (8 * slots + 4 * ylab.shape[0] * k)
+                / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+        del rec_w
+        for args, _ in rec_n.calls:
+            zb = args[0]
+            kernel_errs["row_norm"].append(max_err(torch, row_norm(zb),
+                                                   row_norm_ref(zb)))
+        if not rec_n.calls:
+            raise AssertionError("no row block reached row_norm")
+        torch.cuda.synchronize()
+        part_s["kernels vs plain"] = time.perf_counter() - t1 - replay_s
+    finally:
+        dist.destroy_process_group()
+    for name in ("gee_spmm", "row_norm"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the sharded "
+                                 f"path")
+    out.update(errs={k: list(v) for k, v in errs.items()},
+               kernel_errs=kernel_errs, planes=planes, launches=launches,
+               replay_launches=replay_launches, nccl_s=nccl_s,
+               replay_s=replay_s, part_s=part_s)
+    say(f"phase 12 multi-device folds ({card}): (a) an NCCL group of one "
+        f"rank, in this process, {nccl_s:.1f} s; (b) P = 4 on sbm-10k, each "
+        f"rank's body in turn on this card, {replay_s:.1f} s (by part: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in part_s.items())
+        + "); vs the "
+        f"in-memory cuda fit, 8 settings each: "
+        + "; ".join(f"{k} {fmt_err([v])}" for k, v in errs.items())
+        + "; scale-2m-50m streamed sharded (median of 3, host clock) "
+        + ", ".join(f"{tag} {v['host_ms_median_of_3']:.1f} ms (gee_chunked "
+                    f"in turn {v['chunked_host_ms_median_of_3']:.1f} ms, in "
+                    f"phase 10 {v['chunked_host_ms_median_of_3_phase_10']:.1f}"
+                    f" ms; vs it {fmt_err([v['max_err_vs_chunked']])})"
+                    for tag, v in scale.items())
+        + "; a traced plan's stages (ms) "
+        + "; ".join(f"{b} " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                        st["timings_ms"].items())
+                    + f" (untraced {st['untraced_ms_median_of_3']:.2f}, "
+                    f"coverage {st['coverage']:.3f})"
+                    for b, st in stages.items())
+        + "; gee_spmm on the shard planes "
+        + ", ".join(f"{k} {v['shape']} {v['ms']:.4f} ms (bound "
+                    f"{v['bound_ms']:.4f}, plain {v['plain_ms']:.4f})"
+                    for k, v in planes.items())
+        + f", vs plain {fmt_err(kernel_errs['gee_spmm'])}; row_norm on the "
+        f"row blocks vs plain {fmt_err(kernel_errs['row_norm'])}; cuda "
+        f"backend not run: {skipped}; launches_sharded {launches}, the "
+        f"replay's {replay_launches}")
+    return out
 
 
 def main() -> int:
@@ -2462,19 +2823,31 @@ def main() -> int:
     all_kernels = {**kernels, **rkernels}
     from repro_torch.graph.datasets import DatasetSpec
 
-    stream = streaming_phase(torch, card, all_kernels, replay,
-                             TABLE2["cl-100k-1d8-l5"],
-                             DatasetSpec(*SCALE_SPEC))
-    stream_launches = stream["launches"]
-    report["streaming"] = stream
+    # phases 10-12 share one directory of edge files, removed at the end
+    scratch = tempfile.TemporaryDirectory()
+    try:
+        stream = streaming_phase(torch, card, all_kernels, replay,
+                                 TABLE2["cl-100k-1d8-l5"],
+                                 DatasetSpec(*SCALE_SPEC), scratch.name)
+        stream_launches = stream["launches"]
+        report["streaming"] = stream
 
-    # -- phase 11: serving under deltas ---------------------------------------
-    serving = serving_phase(torch, card, all_kernels)
-    serving_launches = serving["launches"]
-    serving_checks = serving["launches_checks"]
-    for name, e in serving["kernel_errs"].items():
-        errs[name].extend(e)
-    report["serving"] = serving
+        # -- phase 11: serving under deltas -----------------------------------
+        serving = serving_phase(torch, card, all_kernels)
+        serving_launches = serving["launches"]
+        serving_checks = serving["launches_checks"]
+        for name, e in serving["kernel_errs"].items():
+            errs[name].extend(e)
+        report["serving"] = serving
+
+        # -- phase 12: multi-device folds -------------------------------------
+        sharded = sharded_phase(torch, card, all_kernels, graphs, prepared,
+                                scratch.name, stream)
+        for name, e in sharded["kernel_errs"].items():
+            errs[name].extend(e)
+        report["sharded"] = sharded
+    finally:
+        scratch.cleanup()
 
     # -- phase 7: the kernels line -------------------------------------------
     # Slice 1's kernels: ms per fit of cl-100k-1d8-l5.  The retrieval
@@ -2483,7 +2856,9 @@ def main() -> int:
     # count of the kernel's own main path (phases 4-5 or 8);
     # ``launches_streaming`` is phase 10's and ``launches_serving`` phase
     # 11's serving path, each counted apart; ``launches_serving_checks``
-    # is phase 11's own checks (brute force, full probe, Z read back).
+    # is phase 11's own checks (brute force, full probe, Z read back);
+    # ``launches_sharded`` phase 12's sharded calls (its P = 4 replay is
+    # counted apart, in the report).
     line = {"kernels": []}
     rt = rtiming["cl-100k-1d8-l5"]
     for name in list(kernels) + list(rkernels):
@@ -2501,6 +2876,7 @@ def main() -> int:
             "launches_streaming": stream_launches[name],
             "launches_serving": serving_launches[name],
             "launches_serving_checks": serving_checks[name],
+            "launches_sharded": sharded["launches"][name],
             "max_abs_err": worst(errs[name])[0],
             "max_rel_err": worst(errs[name])[1], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

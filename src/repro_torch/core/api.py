@@ -9,6 +9,11 @@ In-memory graphs go through ``fit``/``fit_transform``; graphs on disk (any
 O(|delta| + affected-row edges) (``repro_torch.core.incremental``), and a
 cached similarity index is repaired across them, not rebuilt.
 
+``backend="distributed"`` and ``"streamed_sharded"`` run over a
+``torch.distributed`` process group (``group=None``: the default one, or a
+world of one), each rank on its own shard, and assemble the ranks' row
+blocks, so ``fit_transform`` returns the whole [N, K] on every rank.
+
 The embedder runs on the card unless the caller asks for the CPU:
 ``device=None`` resolves to ``cuda`` and raises ``RuntimeError`` when no GPU
 is present.  ``backend="auto"`` picks the hand-written kernels on the card
@@ -24,6 +29,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.chunked import gee_chunked
+from repro_torch.core.fold import gather_rows, gee_streamed_sharded
 from repro_torch.core.gee import GEEOptions
 from repro_torch.core.incremental import (Delta, DirtyRowTracker,
                                           IncrementalGEE)
@@ -40,14 +46,22 @@ class GEEEmbedder:
     """Fit/transform-style wrapper around GEE.
 
     backend: 'auto' (default: ``cuda`` on the card, ``sparse_torch`` on
-             the CPU, ``chunked`` past the memory budget), 'cuda',
-             'sparse_torch', 'chunked', 'dense_torch', 'scipy' or
-             'python_loop'.  File-backed fits always stream.
+             the CPU, ``chunked`` past the memory budget, or
+             ``streamed_sharded`` across the ranks of a group), 'cuda',
+             'sparse_torch', 'chunked', 'streamed_sharded', 'distributed',
+             'dense_torch', 'scipy' or 'python_loop'.  File-backed fits
+             always stream: ``streamed_sharded`` across the group's ranks
+             if asked for, else ``chunked``.
     device:  where the graph and the embedding live; ``None`` is the card.
     chunk_edges: the streaming window ('chunked' and file-backed fits).
     prefetch_windows: windows staged ahead by background threads when
              streaming (``None``: ``REPRO_GEE_PREFETCH_WINDOWS`` or 2; 0:
              synchronous copies).
+    local_backend: each rank's compute under 'distributed' and
+             'streamed_sharded': 'segment_sum' (default) or 'cuda' (an ELL
+             plane a rank through the ``gee_spmm`` kernel).
+    group:   their ``torch.distributed`` process group (the reference's
+             ``mesh``); ``None`` is the default group, or a world of one.
     """
 
     num_classes: int
@@ -57,6 +71,8 @@ class GEEEmbedder:
     device: Optional[str] = None
     chunk_edges: Optional[int] = None
     prefetch_windows: Optional[int] = None
+    local_backend: str = "segment_sum"
+    group: Optional[object] = None
 
     _prepared: Optional[PreparedGraph] = dataclasses.field(default=None,
                                                           repr=False)
@@ -206,18 +222,33 @@ class GEEEmbedder:
                 self._z = self._inc.embedding()
             return self._z
         if self._z is None:
-            if self._chunked is not None:
-                self._z = gee_chunked(
-                    self._chunked, self._labels, self.num_classes,
-                    self.options, prefetch_windows=self.prefetch_windows,
-                    device=self._labels.device)
-            else:
-                self._z = GEEPlan.build(
-                    self._prepared, self.num_classes, self.options,
-                    backend=self.backend, chunk_edges=self.chunk_edges,
-                    prefetch_windows=self.prefetch_windows,
-                ).execute(self._labels)
+            self._z = self._compute()
         return self._z
+
+    def _compute(self) -> torch.Tensor:
+        if self._chunked is not None:
+            if self.backend == "streamed_sharded":
+                z = gee_streamed_sharded(
+                    self._chunked, self._labels, self.num_classes,
+                    self.options, group=self.group,
+                    local_backend=self.local_backend,
+                    prefetch_windows=self.prefetch_windows,
+                    device=self._labels.device)
+                return gather_rows(z, self._chunked.num_nodes,
+                                   group=self.group)
+            return gee_chunked(
+                self._chunked, self._labels, self.num_classes, self.options,
+                prefetch_windows=self.prefetch_windows,
+                device=self._labels.device)
+        # One plan over the shared PreparedGraph (the multi-device backends
+        # included), so a refit, an option change or a backend switch
+        # reuses every prep artifact.
+        return GEEPlan.build(
+            self._prepared, self.num_classes, self.options,
+            backend=self.backend, chunk_edges=self.chunk_edges,
+            prefetch_windows=self.prefetch_windows,
+            local_backend=self.local_backend, group=self.group,
+        ).execute(self._labels)
 
     def fit_transform(self, edges: "EdgeList | PreparedGraph",
                       labels) -> torch.Tensor:

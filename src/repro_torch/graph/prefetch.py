@@ -72,13 +72,13 @@ def resolve_prefetch_depth(depth: int | None = None) -> int:
 
 
 class PlaneWindow(NamedTuple):
-    """A window already packed into ELL planes by a prefetch stage (the
-    type of the multi-device fold's input; its consumer is not yet
-    ported)."""
+    """A window already packed into one rank's ELL plane by a prefetch
+    stage (``repro_torch.core.fold.gee_streamed_sharded`` with the ``cuda``
+    local backend)."""
 
-    num_edges: int
-    cols: object          # [P * n_pad, width] int32, device-resident
-    vals: object          # [P * n_pad, width] float32, device-resident
+    num_edges: int        # stored entries of the whole window
+    cols: object          # [n_pad, width] int32, on the device
+    vals: object          # [n_pad, width] float32, on the device
 
 
 class _Stop(Exception):
@@ -149,9 +149,14 @@ def _record_on(window, stream) -> None:
     """Mark a staged window's device tensors as used on ``stream``, so the
     caching allocator keeps them until the fold's work on it is done."""
     if isinstance(window, EdgeList):
-        for t in (window.src, window.dst, window.weight):
-            if t.is_cuda:
-                t.record_stream(stream)
+        tensors = (window.src, window.dst, window.weight)
+    elif isinstance(window, PlaneWindow):
+        tensors = (window.cols, window.vals)
+    else:
+        return
+    for t in tensors:
+        if t.is_cuda:
+            t.record_stream(stream)
 
 
 class PrefetchingWindowSource:

@@ -5,10 +5,8 @@ drivers (port of ``repro/obs/cli.py``).
 * :func:`setup` enables the global tracer when ``--trace`` was given
   (before any instrumented work runs);
 * :func:`finish` writes the Chrome/Perfetto trace JSON and the
-  metrics-registry snapshot, printing where they went.
-
-The reference also prints the plan-stage span coverage; the port's plan
-emits no stage spans yet, so that figure is not reported here.
+  metrics-registry snapshot, printing where they went and the plan-stage
+  span coverage (:func:`plan_span_coverage`).
 """
 
 from __future__ import annotations
@@ -34,15 +32,38 @@ def setup(args) -> None:
         obs_trace.enable()
 
 
+def plan_span_coverage(tracer: obs_trace.Tracer | None = None):
+    """Fraction of the last ``plan.execute`` span covered by its direct
+    ``plan.stage.*`` children, or ``None`` when no plan ran under the
+    tracer.  Near 1.0 the stage spans account for the fit's time instead
+    of hiding it between spans."""
+    tr = tracer if tracer is not None else obs_trace.get_tracer()
+    events = tr.events()
+    roots = [e for e in events if e.name == "plan.execute"]
+    if not roots:
+        return None
+    root = roots[-1]
+    lo, hi = root.ts_us, root.ts_us + root.dur_us
+    stage_us = sum(
+        e.dur_us for e in events
+        if e.name.startswith("plan.stage.") and e.tid == root.tid
+        and e.depth == root.depth + 1
+        and lo <= e.ts_us and e.ts_us + e.dur_us <= hi + 1.0)
+    return stage_us / root.dur_us if root.dur_us > 0 else None
+
+
 def finish(args) -> None:
     """Write the artifacts ``--trace`` / ``--metrics-out`` asked for."""
     tr = obs_trace.get_tracer()
     if getattr(args, "trace", None) and tr.enabled:
+        cov = plan_span_coverage(tr)
         n_events = len(tr.events())
         tr.write(args.trace)
         line = f"  trace: {n_events} spans -> {args.trace}"
         if tr.dropped:
             line += f"  ({tr.dropped} dropped past max_events)"
+        if cov is not None:
+            line += f"  [plan stages cover {cov * 100:.1f}% of fit time]"
         print(line)
     if getattr(args, "metrics_out", None):
         obs_metrics.get_registry().write_json(args.metrics_out)

@@ -239,9 +239,13 @@ def test_gee_run_and_search_on_edge_files(tmp_path, capsys):
                          "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "chunk_manifest" in out and "prefetch=2" in out
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        gee_run.main(["--edge-file", path, "--backend", "streamed_sharded",
-                      "--device", "cpu"])
+    # the multi-device fold in a world of one (no process group)
+    assert gee_run.main(["--edge-file", path, "--backend",
+                         "streamed_sharded", "--verify",
+                         "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "streamed x1" in out and "0 entries off the row tolerance: ok" \
+        in out
     with pytest.raises(SystemExit, match="labels sidecar"):
         os.remove(path + ".labels.npy")
         gee_search.main(["--edge-file", path, "--device", "cpu"])

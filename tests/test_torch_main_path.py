@@ -172,10 +172,15 @@ def test_backend_selection(monkeypatch):
     assert GEEPlan.build(g, 3).backend == "sparse_torch"
     # past the memory budget the card streams too
     assert select_backend(g, 3, device="cuda", budget_bytes=1) == "chunked"
-    for name in ("streamed_sharded", "distributed", "pallas"):
-        with pytest.raises(ValueError, match="not yet ported"):
-            GEEPlan.build(g, 3, backend=name)
+    # past the budget across ranks: streamed_sharded (never distributed)
+    assert select_backend(g, 3, device="cuda", budget_bytes=1,
+                          num_devices=4) == "streamed_sharded"
+    for name in ("streamed_sharded", "distributed"):
+        assert GEEPlan.build(g, 3, backend=name).backend == name
+    with pytest.raises(ValueError, match="is not one of"):
+        GEEPlan.build(g, 3, backend="pallas")
     assert KNOWN_BACKENDS == ("sparse_torch", "cuda", "chunked",
+                              "streamed_sharded", "distributed",
                               "dense_torch", "scipy", "python_loop")
 
 
