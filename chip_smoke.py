@@ -43,7 +43,18 @@ paths on the paper's 10k-node SBM and on the ``cl-100k-1d8-l5`` stand-in
   under all 8 settings against the in-memory ``cuda`` fit, and the scale
   file's sharded stream is timed beside phase 10's; P = 4 on sbm-10k is
   replayed rank by rank on the card (NCCL takes one rank a card), and the
-  shard planes and row blocks are held against the plain kernels.
+  shard planes and row blocks are held against the plain kernels;
+* the autotune registry (phase 13): every launch geometry of phases 4-9
+  resolved through ``autotune.REGISTRY`` to its policy's; measured search,
+  by CUDA events, on cl-100k-1d8-l5's narrowest and widest buckets and a
+  flush of ``scored_topk_gathered``, the winners recorded, a fit and the
+  flush with them against the plain versions, save and load;
+* LM serving (phase 14): ``qwen3-0.6b`` at its published widths and depth
+  in bf16 on random seeded weights, held against the committed JAX fixture,
+  the host, a full forward (prefill + decode), and served by
+  ``BatchedServer`` (8 slots, 32 requests) with every emitted token's
+  logits held against a forward; one decode step at B = 64 with a
+  4,096-token cache timed beside its bytes bound.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; phase 11 counts its own checks apart, phase 12 its
@@ -120,6 +131,27 @@ KILL_BATCHES = 24
 # the multi-device folds (phase 12): the most device memory one rank's ELL
 # plane may take for the ``cuda`` local backend to be run
 PLANE_BUDGET_BYTES = 8 << 30
+# LM serving (phase 14): the config, the committed reference fixture, the
+# server's slots, cache, requests (prompt and new-token ranges), the timed
+# step's batch and cache, and the sleep queued ahead of its timing (~0.1 s,
+# longer than the host takes to enqueue one step's launches)
+LM_ARCH = "qwen3-0.6b"
+LM_FIXTURE = "tests/torch_fixtures/lm_qwen3_reduced.npz"
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_REQUESTS = 8, 512, 32
+SERVE_PROMPT, SERVE_NEW = (8, 64), (16, 64)
+STEP_BATCH, STEP_CACHE, STEP_FILL_ROWS = 64, 4096, 2
+STEP_SLEEP_CYCLES = 200_000_000
+# Phase 14's tolerances, as max|got - want| <= REL * max|want| + F32_ATOL.
+# f32 (card against host, against the JAX fixture, decode against forward):
+# the same f32 function summed in another order, 1e-4 of the largest logit.
+# bf16 against the f32 run of the same weights: bf16's unit roundoff 2^-8
+# (taken at twice round-to-nearest's 2^-9) over the ~6 roundings a layer
+# puts on the residual path (the norm outputs, q/k/v and the attention
+# output, wo, the FFN's matmuls, the residual adds), 28 layers adding up
+# as a random walk: 2^-8 * sqrt(6 * 28) = 0.0506.  Logits computed in fp8
+# (unit roundoff 2^-4) would be off by ~16x that.
+F32_REL, F32_ATOL = 1e-4, 1e-5
+BF16_REL = 2.0 ** -8 * (6 * 28) ** 0.5
 
 
 def say(line: str) -> None:
@@ -991,27 +1023,23 @@ def chunk_sweep(torch, ts, name, a, kw) -> dict:
     k = 1 keeps the lists nearly empty, so it reads the cost of the scan
     alone."""
     fn = getattr(ts, name)
-    policy_name, counts, kpos = {
-        "scored_topk": ("_num_chunks", (1, 4, 8, 12, 16, 24, 32, 48), 3),
-        "scored_topk_gathered": ("_gathered_chunks",
+    kernel, counts, kpos = {
+        "scored_topk": (ts.PAIRWISE_KERNEL, (1, 4, 8, 12, 16, 24, 32, 48), 3),
+        "scored_topk_gathered": (ts.GATHERED_KERNEL,
                                  (1, 2, 4, 6, 8, 9, 12, 16, 24, 33, 66), 4),
     }[name]
-    policy = getattr(ts, policy_name)
-    chunks = policy(a[0].device, a[0].shape[0], a[1].shape[-2])
+    chunks = ts.resolve_chunks(kernel, a[0].device, a[0].shape[0],
+                               a[1].shape[-2])
     want = fn(*a, **kw)
     by_k = {k: gpu_ms(torch, lambda: fn(*a[:kpos], k, *a[kpos + 1:], **kw))
             for k in (1, 2, 10, 32)}
     sweep = {}
-    try:
-        for n in counts:
-            setattr(ts, policy_name, lambda *_, n=n: n)
-            got = fn(*a, **kw)
-            if not all(torch.equal(x, y) for x, y in zip(got, want)):
-                raise AssertionError(f"{name} at {n} chunks differs from "
-                                     f"{chunks} chunks")
-            sweep[n] = gpu_ms(torch, lambda: fn(*a, **kw), reps=10)
-    finally:
-        setattr(ts, policy_name, policy)
+    for n in counts:
+        got = fn(*a, **kw, chunks=n)
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"{name} at {n} chunks differs from "
+                                 f"{chunks} chunks")
+        sweep[n] = gpu_ms(torch, lambda: fn(*a, **kw, chunks=n), reps=10)
     return {"chunks": chunks, "chunk_sweep_ms": sweep, "ms_by_k": by_k}
 
 
@@ -2164,6 +2192,500 @@ def sharded_phase(torch, card, all_kernels, graphs, prepared, tmp,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the autotune registry
+# ---------------------------------------------------------------------------
+
+def autotune_phase(torch, card, kernels, rkernels, captured, rcaptured,
+                   fit, graphs) -> dict:
+    """Phase 13.  (a) Every geometry phases 4-9 resolved through
+    ``autotune.REGISTRY`` (its memo holds each key a launch looked up) is
+    its policy's, with nothing recorded.  (b) Measured search, turned on
+    through the API: the contraction kernels on cl-100k-1d8-l5's narrowest
+    and widest buckets (the planes phases 4-5 launched) and
+    ``scored_topk_gathered`` on a flush of phase 8, each candidate timed by
+    CUDA events, the fastest recorded.  (c) A fused and a staged fit of the
+    graph and that flush, with the recorded geometry, against the plain
+    versions.  (d) The recorded entries saved and loaded into a fresh
+    registry.  The recorded entries are cleared at the end.  Prints one
+    line; returns the numbers."""
+    from repro_torch.core.gee import gee_sparse_torch
+    from repro_torch.core.api import GEEEmbedder
+    from repro_torch.kernels import gee_spmm as gs
+    from repro_torch.kernels import ref as ref_mod
+    from repro_torch.kernels import topk_score as ts
+    from repro_torch.kernels.autotune import REGISTRY, AutotuneRegistry
+    from repro_torch.kernels.gee_fused import EPS_NORM
+
+    g = "cl-100k-1d8-l5"
+    out = {}
+    # (a) with nothing recorded, every resolution is the policy's
+    port = (gs.KERNEL_NAME, gs.FUSED_KERNEL_NAME, ts.PAIRWISE_KERNEL,
+            ts.GATHERED_KERNEL)
+    if any(REGISTRY.recorded(k) for k in port):
+        raise AssertionError(f"entries recorded before phase 13: "
+                             f"{REGISTRY.recorded()}")
+    sms = ts._sm_count(torch.device(DEVICE))
+    policy = {gs.KERNEL_NAME: gs._geometry_policy,
+              gs.FUSED_KERNEL_NAME: gs._geometry_policy,
+              ts.PAIRWISE_KERNEL: lambda key: (ts._pairwise_policy(*key),),
+              ts.GATHERED_KERNEL: lambda key: (ts._gathered_policy(*key),)}
+    resolved = {k: REGISTRY.resolved(k) for k in port}
+    for kernel, entries in resolved.items():
+        for key, value in entries.items():
+            if value != tuple(policy[kernel](key)):
+                raise AssertionError(f"{kernel} {key} resolved {value}, "
+                                     f"the policy says {policy[kernel](key)}")
+    # every launch phases 4-9 captured resolves to its key there
+    for gg in graphs:
+        for name, calls in captured[gg].items():
+            if name == "row_norm":
+                continue
+            kernel = gs.FUSED_KERNEL_NAME if name == "gee_spmm_fused" \
+                else gs.KERNEL_NAME
+            for a, _ in calls:
+                k = a[4] if name == "gee_spmm_fused" else a[2]
+                key = gs.geometry_key(a[0].shape[1], k, gs._vec(a[0], a[1]))
+                if key not in resolved[kernel]:
+                    raise AssertionError(f"{kernel} {key}: a main-path "
+                                         f"launch never resolved it")
+    out["resolved_keys"] = {k: len(v) for k, v in resolved.items()}
+    for k in (ts.PAIRWISE_KERNEL, ts.GATHERED_KERNEL):
+        if not all(key[0] == sms for key in resolved[k]):
+            raise AssertionError(f"{k}: a key without this card's {sms} SMs")
+
+    # (b) measured search through the API
+    searches = []
+
+    def ms_of(timings, cand):
+        return timings[tuple(cand)] * 1e3
+
+    for name in ("gee_spmm_fused", "gee_spmm"):
+        calls = captured[g][name]
+        widths = [a[0].shape[1] for a, _ in calls]
+        for pick in sorted({widths.index(min(widths)),
+                            widths.index(max(widths))}):
+            a, kw = calls[pick]
+            if name == "gee_spmm_fused":
+                kernel = gs.FUSED_KERNEL_NAME
+                default = gs.resolve_geometry(kernel, a[0].shape[1], a[4],
+                                              gs._vec(a[0], a[1]))
+                winner, timings = gs.measured_geometry_search(
+                    a[0], a[1], a[4], a[2], a[3],
+                    correlation=kw.get("correlation", True),
+                    eps=EPS_NORM, repeats=5, persist=False)
+            else:
+                kernel = gs.KERNEL_NAME
+                default = gs.resolve_geometry(kernel, a[0].shape[1], a[2],
+                                              gs._vec(a[0], a[1]))
+                winner, timings = gs.measured_geometry_search(
+                    a[0], a[1], a[2], repeats=5, persist=False)
+            searches.append({
+                "kernel": kernel, "shape": list(a[0].shape),
+                "default": list(default), "winner": list(winner),
+                "candidates": len(timings),
+                "default_ms": ms_of(timings, default),
+                "winner_ms": ms_of(timings, winner)})
+    a, kw = rcaptured[(g, "l2")]["scored_topk_gathered"][0]
+    default = (ts.resolve_chunks(ts.GATHERED_KERNEL, a[0].device,
+                                 a[0].shape[0], a[1].shape[1]),)
+    winner, timings = ts.measured_chunks_search(
+        "scored_topk_gathered", a, {"metric": kw.get("metric", "l2")},
+        repeats=5, persist=False)
+    searches.append({"kernel": ts.GATHERED_KERNEL,
+                     "shape": [list(t.shape) for t in a[:2]],
+                     "default": list(default), "winner": list(winner),
+                     "candidates": len(timings),
+                     "default_ms": ms_of(timings, default),
+                     "winner_ms": ms_of(timings, winner)})
+    out["searches"] = searches
+    recorded = {k: REGISTRY.recorded(k) for k in port}
+    n_recorded = sum(len(v) for v in recorded.values())
+    if n_recorded != len(searches):
+        raise AssertionError(f"{n_recorded} entries recorded for "
+                             f"{len(searches)} searches")
+
+    # (c) the fits and the flush with the recorded geometry, against the
+    # plain versions
+    edges, labels, k = graphs[g]
+    opts = GEEEmbedder(num_classes=1).options
+    want = gee_sparse_torch(edges, torch.from_numpy(labels).to(DEVICE), k,
+                            opts)
+    fit_errs = [max_err(torch, fit(g, opts, fused), want)
+                for fused in (True, False)]
+    got = rkernels["scored_topk_gathered"](*a, **kw)
+    full = ref_mod.gathered_scores_ref(a[0], a[1], a[2], kw["metric"])
+    plain = ref_mod.scored_topk_gathered_ref(a[0], a[1], a[2], a[3], a[4],
+                                             kw["metric"])
+    flush_err = check_topk(torch, got, plain, full,
+                           term_scale(torch, a[0], a[1], kw["metric"]), a[3])
+    out["fit_errs"], out["flush_err"] = fit_errs, flush_err
+
+    # (d) save and load round trip
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "autotune.json")
+        REGISTRY.save(path)
+        fresh = AutotuneRegistry()
+        for kernel in port:
+            fresh.register(kernel, fallback=policy[kernel])
+        if fresh.load(path) != n_recorded:
+            raise AssertionError("the saved file does not hold every entry")
+        for kernel, entries in recorded.items():
+            for key, value in entries.items():
+                if fresh.lookup(kernel, key) != value:
+                    raise AssertionError(f"{kernel} {key}: loaded "
+                                         f"{fresh.lookup(kernel, key)}, "
+                                         f"recorded {value}")
+    for kernel in port:
+        REGISTRY.clear(kernel)
+    say(f"phase 13 autotune ({card}): phases 4-9 resolved "
+        f"{out['resolved_keys']} keys through the registry, each its "
+        f"policy's; measured search (CUDA events, min of 5) "
+        + "; ".join(f"{s['kernel']} {s['shape']}: default {s['default']} "
+                    f"{s['default_ms']:.4f} ms, winner {s['winner']} "
+                    f"{s['winner_ms']:.4f} ms of {s['candidates']}"
+                    for s in searches)
+        + f"; fits with the recorded geometry vs sparse_torch "
+          f"{fmt_err(fit_errs)}, the flush vs plain "
+          f"max_abs_err={flush_err[0]:.3g}; save/load round trip of "
+          f"{n_recorded} entries")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: LM serving at full width
+# ---------------------------------------------------------------------------
+
+def hold(torch, got, want, rel) -> float:
+    """``|got - want| <= rel * max|want| + F32_ATOL`` everywhere, else
+    raise; returns max|got - want| / max|want|."""
+    g = got.detach().double()
+    w = want.detach().to(g.device).double()
+    if g.shape != w.shape:
+        raise AssertionError(f"shape {tuple(g.shape)} != {tuple(w.shape)}")
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError("non-finite logits")
+    top = float(w.abs().max())
+    err = float((g - w).abs().max())
+    if not err <= rel * top + F32_ATOL:
+        raise AssertionError(f"max-abs {err:.4g} > {rel:.3g} * {top:.4g} + "
+                             f"{F32_ATOL:g}")
+    return err / top
+
+
+def lm_phase(torch, card, seed: int = 0) -> dict:
+    """Phase 14: ``qwen3-0.6b`` at its published widths and depth, bf16.
+    (a) the port's weights from a seeded generator on the card; (b) the
+    committed reference fixture (JAX logits, reduced config) against the
+    port's f32 forward and prefill + decode on the card; (c) an f32 copy of
+    (a)'s weights, forward on the card against the same on the host; (d)
+    prefill 48 + decode 16 against one forward over 64, f32 and bf16; (e)
+    ``BatchedServer`` (8 slots, max_len 512) serving 32 greedy requests,
+    every emitted token's logits held against one forward over prompt +
+    output; (f) one decode step at B = 64 with a 4,096-token cache, timed
+    beside its bytes bound, 2 rows held against a forward over 4,096
+    tokens.  Prints one line; returns the numbers."""
+    import dataclasses
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.convert import lm_params_from_reference, tree_from_flat
+    from repro_torch.models import lm
+    from repro_torch.serve.batching import BatchedServer, Request
+    from repro_torch.serve.decode import GraphedDecodeStep, make_prefill
+
+    if torch.backends.cuda.matmul.allow_tf32 \
+            or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("f32 matmuls would run in TF32")
+    # bf16 GEMMs reduce in f32, as the reference's do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    out = {}
+    rng = np.random.default_rng(seed)
+    cfg = get_config(LM_ARCH)
+    widths = (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+              cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size,
+              cfg.param_dtype, cfg.compute_dtype)
+    if widths != (28, 1024, 16, 8, 128, 3072, 151_936, "bfloat16",
+                  "bfloat16"):
+        raise AssertionError(f"{LM_ARCH} is not the published config: "
+                             f"{widths}")
+
+    def tree_map(fn, tree):
+        if isinstance(tree, dict):
+            return {k: tree_map(fn, v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [tree_map(fn, v) for v in tree]
+        return fn(tree)
+
+    def sync():
+        torch.cuda.synchronize()
+
+    # (a) weights
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed, device=DEVICE)
+    sync()
+    n = sum(p.numel() for p in lm.param_tensors(params))
+    nbytes = sum(p.numel() * p.element_size()
+                 for p in lm.param_tensors(params))
+    if n != lm.tree_size_from_param_count(cfg) \
+            or cfg.param_count() != 596_071_424:
+        raise AssertionError(f"{n} parameters, param_count "
+                             f"{cfg.param_count()}")
+    out["a"] = {"param_count": cfg.param_count(), "tree_elements": n,
+                "bytes": nbytes, "init_s": time.perf_counter() - t0}
+
+    # (b) the reference fixture
+    with np.load(os.path.join(REPO, LM_FIXTURE)) as f:
+        fix = {k: f[k] for k in f.files}
+    rcfg = cfg.reduced()
+    fparams = lm_params_from_reference(tree_from_flat(fix, "param/"), rcfg,
+                                       device=DEVICE)
+    ftoks = torch.from_numpy(fix["tokens"]).to(DEVICE)
+    half = int(fix["prefill_len"])
+    flog, _, _ = lm.forward(fparams, {"tokens": ftoks}, rcfg)
+    err_fwd = hold(torch, flog, torch.from_numpy(fix["logits_forward"]),
+                   F32_REL)
+    lg, caches, _ = lm.forward(fparams, {"tokens": ftoks[:, :half]}, rcfg,
+                               mode="prefill", cache_len=ftoks.shape[1])
+    outs = [lg[:, -1:]]
+    for step in range(half, ftoks.shape[1]):
+        lg, caches = lm.decode_step(fparams, ftoks[:, step:step + 1], caches,
+                                    step, rcfg)
+        outs.append(lg)
+    err_dec = hold(torch, torch.cat(outs, 1),
+                   torch.from_numpy(fix["logits_decode"]), F32_REL)
+    out["b"] = {"forward_rel_err": err_fwd, "decode_rel_err": err_dec}
+    del fparams, caches
+
+    # (c) card against host, f32
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64))
+                            .astype(np.int32))
+    t0 = time.perf_counter()
+    want_host, _, _ = lm.forward(tree_map(lambda t: t.cpu(), p32),
+                                 {"tokens": toks}, cfg32)
+    host_s = time.perf_counter() - t0
+    full32, _, _ = lm.forward(p32, {"tokens": toks.to(DEVICE)}, cfg32)
+    out["c"] = {"rel_err": hold(torch, full32, want_host, F32_REL),
+                "host_forward_s": host_s}
+    del want_host
+
+    # (d) prefill 48, decode 16, against one forward over 64
+    def prefill_decode(p, c):
+        tk = toks.to(DEVICE)
+        lg, caches, _ = lm.forward(p, {"tokens": tk[:, :48]}, c,
+                                   mode="prefill", cache_len=64)
+        outs = [lg[:, -1:]]
+        for step in range(48, 64):
+            lg, caches = lm.decode_step(p, tk[:, step:step + 1], caches, step,
+                                        c)
+            outs.append(lg)
+        return torch.cat(outs, 1)
+
+    dec32 = prefill_decode(p32, cfg32)
+    dec16 = prefill_decode(params, cfg)
+    full16, _, _ = lm.forward(params, {"tokens": toks.to(DEVICE)}, cfg)
+    want = full32[:, 47:]
+    out["d"] = {"f32_rel_err": hold(torch, dec32, want, F32_REL),
+                "bf16_decode_rel_err": hold(torch, dec16, want, BF16_REL),
+                "bf16_forward_rel_err": hold(torch, full16[:, 47:], want,
+                                             BF16_REL),
+                "bf16_decode_vs_bf16_forward_rel_err": float(
+                    (dec16 - full16[:, 47:]).abs().max()
+                    / full16[:, 47:].abs().max())}
+    del full32, full16, dec32, dec16
+
+    # (e) the server
+    def requests():
+        return [Request(uid=i, prompt=rng.integers(
+                    0, cfg.vocab_size, int(rng.integers(
+                        SERVE_PROMPT[0], SERVE_PROMPT[1] + 1)))
+                    .astype(np.int32),
+                    max_new_tokens=int(rng.integers(SERVE_NEW[0],
+                                                    SERVE_NEW[1] + 1)))
+                for i in range(SERVE_REQUESTS)]
+
+    def serve(reqs):
+        server = BatchedServer(params, cfg, SERVE_SLOTS, SERVE_MAX_LEN,
+                               seed=seed, device=DEVICE)
+        rec, call_ms, calls = {}, [], {"prefill": 0, "tick": 0}
+        events = []
+        orig = server._decode
+
+        def wrapped(p, c, t, pos, rows):
+            t0 = time.perf_counter()
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            logits, c = orig(p, c, t, pos, rows)
+            ev[1].record()
+            sync()
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+            events.append(ev)
+            tick = False
+            for s in rows:
+                req = server.slot_req[s]
+                if pos >= len(req.prompt) - 1:
+                    rec.setdefault(req.uid, {})[pos] = logits[s, 0].clone()
+                    tick = True
+            calls["tick" if tick else "prefill"] += 1
+            return logits, c
+
+        server._decode = wrapped
+        for r in reqs:
+            server.submit(r)
+        sync()
+        t0 = time.perf_counter()
+        done = server.run()
+        sync()
+        wall = time.perf_counter() - t0
+        device_ms = sum(a.elapsed_time(b) for a, b in events)
+        return server, done, rec, call_ms, calls, wall, device_ms
+
+    server, done, rec, call_ms, calls, wall, device_ms = serve(requests())
+    if len(done) != SERVE_REQUESTS:
+        raise AssertionError(f"{len(done)} of {SERVE_REQUESTS} finished")
+    errs, tokens = [], 0
+    for req in done:
+        seq = np.concatenate([req.prompt, np.asarray(req.output, np.int32)])
+        want32, _, _ = lm.forward(p32, {"tokens": torch.from_numpy(seq)[None]
+                                        .to(DEVICE)}, cfg32)
+        p0 = len(req.prompt) - 1
+        if sorted(rec[req.uid]) != list(range(p0, p0 + len(req.output))):
+            raise AssertionError(f"request {req.uid}: logits missing")
+        got = torch.stack([rec[req.uid][p0 + j]
+                           for j in range(len(req.output))])
+        errs.append(hold(torch, got, want32[0, p0:p0 + len(req.output)],
+                         BF16_REL))
+        if max(req.output) >= cfg.vocab_size:
+            raise AssertionError("a padded id was emitted")
+        tokens += len(req.output)
+    stats = server.stats
+    if stats["tokens_out"] != tokens:
+        raise AssertionError("stats['tokens_out'] disagrees")
+    lat = np.asarray(call_ms)
+    # the same call eager (no graph) on the server's shapes: one slot
+    # written at a mid-cache position, host clock ending in a sync
+    eager_caches = lm.init_caches(cfg, SERVE_SLOTS, SERVE_MAX_LEN,
+                                  device=DEVICE)
+    eager_toks = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int32,
+                             device=DEVICE)
+    eager_ms = host_ms(torch, lambda: lm.decode_step(
+        params, eager_toks, eager_caches, SERVE_MAX_LEN // 2, cfg, rows=[0]),
+        reps=20)
+    # the device work one decode call enqueues, by kind, from a CUDA graph
+    step_nodes = graph_nodes(torch, lambda: lm.decode_step(
+        params, eager_toks, eager_caches,
+        torch.full((1,), SERVE_MAX_LEN // 2, dtype=torch.int64,
+                   device=DEVICE), cfg,
+        rows=torch.arange(SERVE_SLOTS, device=DEVICE) == 0))
+    del eager_caches
+    out["e"] = {
+        "requests": SERVE_REQUESTS, "slots": SERVE_SLOTS,
+        "max_len": SERVE_MAX_LEN, "tokens_out": tokens, "wall_s": wall,
+        "tokens_per_s": tokens / wall,
+        "decode_call_ms_p50": float(np.percentile(lat, 50)),
+        "decode_call_ms_p95": float(np.percentile(lat, 95)),
+        "decode_calls": calls, "ticks": stats["ticks"],
+        "decode_calls_per_tick": calls["tick"] / stats["ticks"],
+        "mean_occupancy": float(np.mean(list(stats["batch_occupancy"]))),
+        # the device's busy share: the decode calls' device time (CUDA
+        # events around each graph replay; torch.profiler does not see the
+        # kernels inside a replayed graph) over the run's wall time
+        "device_ms_in_decode_calls": device_ms,
+        "device_busy_share": device_ms / (wall * 1e3),
+        "eager_decode_call_ms_median_of_20": eager_ms,
+        "device_work_a_decode_call": step_nodes,
+        "max_rel_err_vs_f32_forward": max(errs),
+        "kv_cache_bytes": 2 * server.caches["k"].numel() * 2}
+    del server, done, rec
+
+    # (f) one decode step at B = 64 with a 4,096-token cache
+    b, s = STEP_BATCH, STEP_CACHE
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))
+                               .astype(np.int32)).to(DEVICE)
+    torch.cuda.empty_cache()
+    caches = lm.init_caches(cfg, b, s, device=DEVICE)
+    cache_bytes = sum(caches[n].numel() * caches[n].element_size()
+                      for n in ("k", "v"))
+    # each row's 4,095-token prompt prefilled, two rows a call, attention in
+    # one chunk of the whole prompt
+    prefill = make_prefill(cfg, cache_len=s, chunk=s)
+    t0 = time.perf_counter()
+    for row in range(0, b, STEP_FILL_ROWS):
+        rs = slice(row, row + STEP_FILL_ROWS)
+        _, c = prefill(params, {"tokens": prompts[rs, :s - 1]})
+        for name in ("k", "v", "pos"):
+            caches[name][:, rs] = c[name]
+        del c
+    sync()
+    fill_s = time.perf_counter() - t0
+    tok = prompts[:, s - 1:]
+    eager_step = lambda: lm.decode_step(params, tok, caches, s - 1,  # noqa
+                                        cfg)[0]
+    graph_step = GraphedDecodeStep(params, caches, cfg)
+    logits = {"eager": eager_step().clone(),
+              "graphed": graph_step(tok, s - 1).clone()}
+    step_ms = gpu_ms(torch, lambda: graph_step(tok, s - 1), reps=10,
+                     warmup=1)
+    step_eager_ms = gpu_ms(torch, eager_step, reps=10, warmup=1,
+                           sleep_cycles=STEP_SLEEP_CYCLES)
+    step_host_ms = host_ms(torch, lambda: graph_step(tok, s - 1), reps=5)
+    step_eager_host_ms = host_ms(torch, eager_step, reps=5)
+    bound_ms = (nbytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    rows_err = []
+    for row in (0, b - 1):
+        want32, _, _ = lm.forward(p32, {"tokens": prompts[row:row + 1]},
+                                  cfg32, chunk=s)
+        for got in logits.values():
+            rows_err.append(hold(torch, got[row, 0], want32[0, -1],
+                                 BF16_REL))
+        del want32
+    peak = torch.cuda.max_memory_allocated()
+    del caches, logits, graph_step
+    torch.cuda.empty_cache()
+    d32 = SHAPES["decode_32k"]
+    cut_bytes = (d32.global_batch * d32.seq_len * cfg.num_layers * 2
+                 * cfg.num_kv_heads * cfg.resolved_head_dim * 2)
+    out["f"] = {"batch": b, "cache_len": s, "cache_bytes": cache_bytes,
+                "weight_bytes": nbytes, "fill_s": fill_s,
+                "step_ms_median_of_10": step_ms,
+                "step_host_ms_median_of_5": step_host_ms,
+                "eager_step_ms_median_of_10": step_eager_ms,
+                "eager_step_host_ms_median_of_5": step_eager_host_ms,
+                "bound_ms": bound_ms, "bound_by": "bytes",
+                "rows_rel_err_vs_f32_forward": rows_err,
+                "peak_bytes": peak,
+                "decode_32k_cache_bytes": cut_bytes}
+    e, f = out["e"], out["f"]
+    say(f"phase 14 LM serving {LM_ARCH} at full width ({card}): (a) "
+        f"{n:,} parameter elements (param_count {cfg.param_count():,}), "
+        f"{nbytes / 1e9:.3f} GB bf16, seeded on the card in "
+        f"{out['a']['init_s']:.1f} s; (b) vs the JAX fixture f32 forward "
+        f"{err_fwd:.3g}, prefill+decode {err_dec:.3g} (of max|want|; bound "
+        f"{F32_REL:g}); (c) f32 card vs host {out['c']['rel_err']:.3g}; (d) "
+        f"prefill 48 + decode 16 vs forward 64: f32 "
+        f"{out['d']['f32_rel_err']:.3g}, bf16 "
+        f"{out['d']['bf16_decode_rel_err']:.3g} (bound {BF16_REL:.4f}); (e) "
+        f"{SERVE_REQUESTS} requests in {SERVE_SLOTS} slots, {tokens} tokens "
+        f"in {wall:.2f} s ({e['tokens_per_s']:.1f} tok/s), decode call p50 "
+        f"{e['decode_call_ms_p50']:.2f} ms p95 {e['decode_call_ms_p95']:.2f} "
+        f"ms, {e['decode_calls_per_tick']:.2f} calls a tick, device busy "
+        f"{e['device_busy_share']:.3f} of the run, a call {step_nodes} "
+        f"of device work, the same call eager {eager_ms:.2f} ms, logits vs "
+        f"f32 forward "
+        f"{e['max_rel_err_vs_f32_forward']:.3g};"
+        f" (f) B={b} x {s} cache ({cache_bytes / 1e9:.2f} GB, filled in "
+        f"{fill_s:.1f} s): the graphed step {step_ms:.3f} ms (host "
+        f"{step_host_ms:.3f} ms), eager {step_eager_ms:.3f} ms (host "
+        f"{step_eager_host_ms:.3f} ms), beside its bytes bound "
+        f"{bound_ms:.3f} ms; rows vs f32 forward "
+        f"{max(rows_err):.3g}; decode_32k's cache "
+        f"({cut_bytes / 1e9:.0f} GB) does not fit one card")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2172,6 +2694,10 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(REPO, "src"))
+    # the launch geometry comes from the policies alone: no cache file is
+    # read and no search runs at launch time (phase 13 checks it)
+    for var in ("REPRO_AUTOTUNE_CACHE", "REPRO_AUTOTUNE_MEASURE"):
+        os.environ.pop(var, None)
     from repro_torch.core.api import GEEEmbedder
     from repro_torch.core.gee import (ALL_OPTION_SETTINGS, gee_scipy,
                                       gee_sparse_torch)
@@ -2848,6 +3374,15 @@ def main() -> int:
         report["sharded"] = sharded
     finally:
         scratch.cleanup()
+
+    # -- phase 13: the autotune registry ---------------------------------------
+    report["autotune"] = autotune_phase(torch, card, kernels, rkernels,
+                                        captured, rcaptured, fit, graphs)
+
+    # -- phase 14: LM serving at full width ------------------------------------
+    del captured, rcaptured, prepared
+    torch.cuda.empty_cache()
+    report["lm"] = lm_phase(torch, card)
 
     # -- phase 7: the kernels line -------------------------------------------
     # Slice 1's kernels: ms per fit of cl-100k-1d8-l5.  The retrieval

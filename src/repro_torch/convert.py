@@ -1,18 +1,18 @@
-"""Carry graph state from the reference package into the port.
+"""Carry state from the reference package into the port.
 
-GEE has no model weights; what carries across is the graph and its prep.
-Both functions take plain numpy arrays (what ``np.asarray`` gives for the
+Every function takes plain numpy arrays (what ``np.asarray`` gives for the
 reference's arrays), so this module needs nothing of the reference:
 
 * ``edge_list_from_reference``: an ``EdgeList``'s ``src``/``dst``/``weight``
   (padding tail included) with its ``num_nodes``/``num_edges``.
 * ``bucketed_ell_from_reference``: a ``BucketedELL``'s per-bucket
   ``(cols, vals, row_ids, num_rows, width)``.
+* ``lm_params_from_reference``: an LM's parameter tree.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Sequence
+from typing import Iterable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -67,4 +67,88 @@ def bucketed_ell_from_reference(
     return BucketedELL(buckets=tuple(out), num_nodes=int(num_nodes))
 
 
-__all__ = ["edge_list_from_reference", "bucketed_ell_from_reference"]
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    """A numpy array (bfloat16 from ``ml_dtypes`` too) as a tensor of the
+    same dtype and bits on ``device``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+
+def tree_from_flat(flat: Mapping, prefix: str = "") -> dict:
+    """Nest the entries of ``flat`` whose keys start with ``prefix``
+    (``"param/layers/mixer/wq"`` -> ``tree["layers"]["mixer"]["wq"]``), as
+    a parameter tree saved flat (``np.savez``) is read back."""
+    tree: dict = {}
+    for key, value in flat.items():
+        if not key.startswith(prefix):
+            continue
+        *path, leaf = key[len(prefix):].split("/")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return tree
+
+
+def lm_params_from_reference(params: Mapping, cfg, device=None) -> dict:
+    """The reference's LM parameter tree (``repro.models.lm.init_params``;
+    its leaves as numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``)
+    -> the port's (``repro_torch.models.lm``), on ``device`` (``None``:
+    the card), bit for bit.
+
+    The reference stacks a scanned stack's layers ``[L, ...]`` under
+    ``params["layers"]``; the port keeps one dict a layer, so the stack is
+    split (a list of per-layer dicts is taken as it is).  Both packages keep
+    every matrix ``[d_in, d_out]`` and apply it as ``x @ W``, so nothing is
+    transposed.  A tied head is the embedding's transpose in both and has no
+    ``head`` entry; an untied one must have it.
+    """
+    from repro_torch.models.lm import abstract_params
+
+    device = resolve_device(device)
+    want = abstract_params(cfg)
+    if cfg.tie_embeddings and "head" in params:
+        raise ValueError(f"{cfg.name} ties its head to the embedding, but "
+                         f"the tree has a 'head' entry")
+    if set(params) != set(want):
+        raise ValueError(f"parameter tree keys {sorted(params)}, expected "
+                         f"{sorted(want)}")
+
+    def leaf_map(tree, fn):
+        if isinstance(tree, Mapping):
+            return {k: leaf_map(v, fn) for k, v in tree.items()}
+        return fn(tree)
+
+    layers = params["layers"]
+    if isinstance(layers, Mapping):               # stacked [L, ...]
+        layers = [leaf_map(layers, lambda a, i=i: np.asarray(a)[i])
+                  for i in range(cfg.num_layers)]
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"{len(layers)} layers, expected {cfg.num_layers}")
+    tree = {k: v for k, v in params.items() if k != "layers"}
+    tree["layers"] = list(layers)
+
+    def convert(got, shape_of):
+        if isinstance(shape_of, torch.Tensor):
+            t = _tensor(got, device)
+            if tuple(t.shape) != tuple(shape_of.shape) \
+                    or t.dtype != shape_of.dtype:
+                raise ValueError(f"leaf {tuple(t.shape)} {t.dtype}, "
+                                 f"expected {tuple(shape_of.shape)} "
+                                 f"{shape_of.dtype}")
+            return t
+        if isinstance(shape_of, dict):
+            if set(got) != set(shape_of):
+                raise ValueError(f"keys {sorted(got)}, expected "
+                                 f"{sorted(shape_of)}")
+            return {k: convert(got[k], shape_of[k]) for k in shape_of}
+        return [convert(g, w) for g, w in zip(got, shape_of)]
+
+    return convert(tree, want)
+
+
+__all__ = ["edge_list_from_reference", "bucketed_ell_from_reference",
+           "tree_from_flat", "lm_params_from_reference"]

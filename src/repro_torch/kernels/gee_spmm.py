@@ -14,12 +14,19 @@ of ``SPAN`` slots, a row wider than that several blocks whose partial sums the
 last one to arrive adds in span order (a workspace and a per-row ticket).
 Loads are 16 B (``int4``/``float4``) where the width and the bases allow; K
 <= 8 is exact.  See the source for the sum order.
+
+A launch resolves its geometry through ``autotune.REGISTRY`` (kernels
+``cuda.gee_spmm`` and ``cuda.gee_spmm_fused``, key ``(D, K, vec)``), whose
+fallback is ``launch_geometry``: with nothing recorded it is exactly that
+policy.  ``measured_geometry_search`` times the knobs' other geometries on a
+launch's planes and records the fastest.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.autotune import REGISTRY, measure_enabled
 from repro_torch.kernels.build import (check_launch, check_tensor,
                                       load_library, stream_of)
 from repro_torch.kernels.ref import gee_spmm_ref
@@ -65,6 +72,104 @@ def launch_geometry(d: int, num_classes: int, vec: bool,
     return lanes, span, max(-(-d // span), 1)
 
 
+KERNEL_NAME = "cuda.gee_spmm"
+FUSED_KERNEL_NAME = "cuda.gee_spmm_fused"
+
+
+def _geometry_policy(key: tuple[int, ...]) -> tuple[int, int, int]:
+    """The registry's fallback: ``launch_geometry`` at key ``(D, K, vec)``
+    with the default knobs."""
+    d, num_classes, vec = key
+    return launch_geometry(d, num_classes, bool(vec))
+
+
+for _kernel in (KERNEL_NAME, FUSED_KERNEL_NAME):
+    REGISTRY.register(_kernel, fallback=_geometry_policy)
+
+
+def geometry_key(d: int, num_classes: int, vec: bool) -> tuple[int, ...]:
+    return (int(d), int(num_classes), int(bool(vec)))
+
+
+def check_geometry(geometry, d: int, num_classes: int) -> tuple[int, ...]:
+    """``geometry`` as ``(lanes, span, spans)`` if the kernels take it for
+    [R, d] planes of ``num_classes`` classes (a recorded entry may come from
+    a file); raises ``ValueError`` otherwise."""
+    g = tuple(int(v) for v in geometry)
+    ok = len(g) == 3 and g[0] >= 1 and g[0] & (g[0] - 1) == 0
+    if ok:
+        lanes, span, spans = g
+        if lanes <= _WARP:
+            ok = spans == 1 and (num_classes <= 8 or lanes == _WARP)
+        else:
+            ok = (2 * _WARP <= lanes <= _BLOCK and span >= 4
+                  and span % 4 == 0 and spans == max(-(-d // span), 1))
+    if not ok:
+        raise ValueError(f"geometry {geometry} is not one the contraction "
+                         f"kernels take at D={d}, K={num_classes}")
+    return g
+
+
+def resolve_geometry(kernel: str, d: int, num_classes: int,
+                     vec: bool) -> tuple[int, ...]:
+    """``(lanes, span, spans)`` of a launch of ``kernel`` (``KERNEL_NAME``
+    or ``FUSED_KERNEL_NAME``) through ``REGISTRY``."""
+    return check_geometry(
+        REGISTRY.lookup(kernel, geometry_key(d, num_classes, vec)), d,
+        num_classes)
+
+
+# the knobs the measured search sweeps: (lane_loads, seg_loads, span)
+_KNOB_LADDER = tuple((ll, sl, sp) for ll in (1, 2, 4, 8, 16)
+                     for sl in (8, 16, 32) for sp in (2048, 4096, 8192)
+                     if ll <= sl)
+
+
+def geometry_candidates(kernel: str, d: int, num_classes: int,
+                        vec: bool) -> list[tuple[int, ...]]:
+    """The measured search's candidates: the current resolution first (so
+    a recorded winner can only match or beat it), then every geometry the
+    knob ladder gives, without repeats."""
+    out = [resolve_geometry(kernel, d, num_classes, vec)]
+    for knobs in _KNOB_LADDER:
+        g = launch_geometry(d, num_classes, vec, *knobs)
+        if g not in out:
+            out.append(g)
+    return out
+
+
+def measured_geometry_search(ylab: torch.Tensor, contrib: torch.Tensor,
+                             num_classes: int,
+                             rowlab: torch.Tensor | None = None,
+                             dadd: torch.Tensor | None = None, *,
+                             correlation: bool = False, eps: float = 0.0,
+                             repeats: int = 3, persist: bool = True):
+    """Time the candidate geometries on these CUDA planes (``gee_spmm``
+    when ``rowlab`` is None, else ``gee_spmm_fused``) by CUDA events and
+    record the fastest under the planes' key.  Returns ``(winner,
+    {geometry: seconds})``; a key already recorded returns at once with no
+    timings."""
+    r, d = ylab.shape
+    vec = _vec(ylab, contrib)
+    kernel = KERNEL_NAME if rowlab is None else FUSED_KERNEL_NAME
+
+    def run(g):
+        return launch_contraction(ylab, contrib, rowlab, dadd, num_classes,
+                                  correlation=correlation, eps=eps,
+                                  geometry=check_geometry(g, d, num_classes))
+
+    return REGISTRY.measured_search(
+        kernel, geometry_key(d, num_classes, vec),
+        geometry_candidates(kernel, d, num_classes, vec), run,
+        repeats=repeats, persist=persist)
+
+
+def _vec(ylab: torch.Tensor, contrib: torch.Tensor) -> bool:
+    """16-byte loads: d % 4 == 0 and both bases aligned."""
+    return (ylab.shape[1] % 4 == 0 and ylab.data_ptr() % 16 == 0
+            and contrib.data_ptr() % 16 == 0)
+
+
 # Ticket counters of split rows, one buffer a (device, stream): zeroed when
 # made, and every launch that takes a ticket puts it back to 0, so the
 # launches of one stream, which run in order, share it.
@@ -84,18 +189,27 @@ def _tickets(device: torch.device, stream: int, rows: int) -> torch.Tensor:
 def launch_contraction(ylab: torch.Tensor, contrib: torch.Tensor,
                        rowlab: torch.Tensor | None, dadd: torch.Tensor | None,
                        num_classes: int, *, correlation: bool = False,
-                       eps: float = 0.0) -> torch.Tensor:
+                       eps: float = 0.0,
+                       geometry: tuple[int, ...] | None = None
+                       ) -> torch.Tensor:
     """Launch the contraction kernels on checked CUDA planes: ``gee_spmm``
     when ``rowlab`` is None, else ``gee_spmm_fused`` (an empty ``rowlab``:
-    no diag term).  Counts nothing; the wrappers do."""
+    no diag term).  ``geometry`` (``(lanes, span, spans)``, checked by the
+    caller) overrides the registry's.  Counts nothing; the wrappers do."""
     r, d = ylab.shape
     dev = ylab.device
     out = torch.empty((r, num_classes), dtype=torch.float32, device=dev)
     if r == 0:
         return out
-    vec = (d % 4 == 0 and ylab.data_ptr() % 16 == 0
-           and contrib.data_ptr() % 16 == 0)
-    lanes, span, spans = launch_geometry(d, num_classes, vec)
+    vec = _vec(ylab, contrib)
+    if geometry is None:
+        kernel = KERNEL_NAME if rowlab is None else FUSED_KERNEL_NAME
+        if measure_enabled() and geometry_key(d, num_classes, vec) \
+                not in REGISTRY.recorded(kernel):
+            measured_geometry_search(ylab, contrib, num_classes, rowlab, dadd,
+                                     correlation=correlation, eps=eps)
+        geometry = resolve_geometry(kernel, d, num_classes, vec)
+    lanes, span, spans = geometry
     stream = stream_of(ylab)
     ws = tickets = None
     if spans > 1:           # the spans' partial sums, and the row tickets
@@ -143,5 +257,7 @@ def gee_spmm(ylab: torch.Tensor, contrib: torch.Tensor,
 
 gee_spmm.launches = 0
 
-__all__ = ["LANE_LOADS", "SEG_LOADS", "SPAN", "launch_geometry",
-           "launch_contraction", "gee_spmm"]
+__all__ = ["LANE_LOADS", "SEG_LOADS", "SPAN", "KERNEL_NAME",
+           "FUSED_KERNEL_NAME", "launch_geometry", "geometry_key",
+           "check_geometry", "resolve_geometry", "geometry_candidates",
+           "measured_geometry_search", "launch_contraction", "gee_spmm"]

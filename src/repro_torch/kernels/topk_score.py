@@ -27,8 +27,11 @@ A CPU tensor takes the plain version (``repro_torch.kernels.ref``); a CUDA
 tensor launches the kernel or raises.  The one other route is open and
 documented: a top-k wider than ``MAX_TOPK`` (``min(k, M) > MAX_TOPK``), or
 ``fused=False``, runs the staged kernels (``pairwise_scores`` /
-``gathered_scores``, then ``masked_topk``).  The TPU block tables and their
-autotune registry stay behind: they are TPU geometry.
+``gathered_scores``, then ``masked_topk``).  The TPU block tables stay
+behind: they are TPU geometry.  The top-k kernels' chunk counts resolve
+through ``autotune.REGISTRY`` (``cuda.topk_pairwise`` and
+``cuda.topk_gathered``, key ``(SMs, Q, M)``), whose fallbacks are the
+policies ``_num_chunks`` and ``_gathered_chunks``.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels.autotune import REGISTRY, measure_enabled
 from repro_torch.kernels.build import (check_launch, check_tensor,
                                       load_library, stream_of)
 from repro_torch.kernels.gee_fused import fused_override
@@ -159,21 +163,103 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _pairwise_policy(sms: int, q: int, m: int) -> int:
+    fit = _BLOCKS_PER_SM * sms // -(-q // _QUERY_TILE)
+    return max(1, min(fit, -(-m // _MIN_CHUNK)))
+
+
+def _gathered_policy(sms: int, q: int, m: int) -> int:
+    fit = _GATHER_BLOCKS_PER_SM * sms // q
+    return max(1, min(fit, -(-m // _GATHER_MIN_CHUNK)))
+
+
 def _num_chunks(device: torch.device, q: int, m: int) -> int:
     """How many chunks ``scored_topk`` splits M into: its ceil(Q /
     ``_QUERY_TILE``) query tiles times the chunks at most
     ``_BLOCKS_PER_SM`` blocks an SM in all, none shorter than
     ``_MIN_CHUNK`` candidates (but always one)."""
-    fit = _BLOCKS_PER_SM * _sm_count(device) // -(-q // _QUERY_TILE)
-    return max(1, min(fit, -(-m // _MIN_CHUNK)))
+    return _pairwise_policy(_sm_count(device), q, m)
 
 
 def _gathered_chunks(device: torch.device, q: int, m: int) -> int:
     """How many chunks ``scored_topk_gathered`` splits each query's M into:
     at most ``_GATHER_BLOCKS_PER_SM`` blocks an SM in all, none shorter than
     ``_GATHER_MIN_CHUNK`` candidates (but always one)."""
-    fit = _GATHER_BLOCKS_PER_SM * _sm_count(device) // q
-    return max(1, min(fit, -(-m // _GATHER_MIN_CHUNK)))
+    return _gathered_policy(_sm_count(device), q, m)
+
+
+PAIRWISE_KERNEL = "cuda.topk_pairwise"
+GATHERED_KERNEL = "cuda.topk_gathered"
+_KERNEL_OF = {"scored_topk": PAIRWISE_KERNEL,
+              "scored_topk_gathered": GATHERED_KERNEL}
+REGISTRY.register(PAIRWISE_KERNEL,
+                  fallback=lambda key: (_pairwise_policy(*key),))
+REGISTRY.register(GATHERED_KERNEL,
+                  fallback=lambda key: (_gathered_policy(*key),))
+
+
+def chunks_key(device: torch.device, q: int, m: int) -> tuple[int, ...]:
+    """The registry key of a top-k launch: the card's SM count (the
+    policies read it), Q and M."""
+    return (_sm_count(device), int(q), int(m))
+
+
+def resolve_chunks(kernel: str, device: torch.device, q: int, m: int) -> int:
+    """The chunk count of a launch of ``kernel`` (``PAIRWISE_KERNEL`` or
+    ``GATHERED_KERNEL``) through ``REGISTRY``."""
+    value = REGISTRY.lookup(kernel, chunks_key(device, q, m))
+    if len(value) != 1 or value[0] < 1:
+        raise ValueError(f"{kernel}: chunk count {value} is not one int >= 1")
+    return value[0]
+
+
+def chunk_candidates(kernel: str, device: torch.device, q: int,
+                     m: int) -> list[tuple[int]]:
+    """The measured search's candidates: the current resolution first,
+    then 1 to 64 chunks by powers of two, no more chunks than M."""
+    out = [(resolve_chunks(kernel, device, q, m),)]
+    out += [(c,) for c in (1, 2, 4, 8, 16, 32, 64)
+            if c <= m and (c,) not in out]
+    return out
+
+
+def measured_chunks_search(name: str, args: tuple, kwargs: dict | None = None,
+                           *, repeats: int = 3, persist: bool = True):
+    """Time ``scored_topk`` or ``scored_topk_gathered`` (``name``) on one
+    call's CUDA operands ``args``/``kwargs`` at each candidate chunk count
+    by CUDA events, and record the fastest under the call's key.  Returns
+    ``(winner, {(chunks,): seconds})``."""
+    queries, other = args[0], args[1]
+    q, m = queries.shape[0], other.shape[-2]
+    kernel = _KERNEL_OF[name]
+    fn = {"scored_topk": scored_topk,
+          "scored_topk_gathered": scored_topk_gathered}[name]
+
+    def run(c):
+        return fn(*args, **(kwargs or {}), chunks=int(c[0]))
+
+    return REGISTRY.measured_search(
+        kernel, chunks_key(queries.device, q, m),
+        chunk_candidates(kernel, queries.device, q, m), run, repeats=repeats,
+        persist=persist)
+
+
+def _launch_chunks(name: str, args: tuple, kwargs: dict,
+                   chunks: int | None) -> int:
+    """A launch's chunk count: ``chunks`` when given, else the registry's
+    (after a measured search of the call when ``REPRO_AUTOTUNE_MEASURE`` opts
+    in and its key is not recorded)."""
+    if chunks is not None:
+        if int(chunks) < 1:
+            raise ValueError(f"chunks must be >= 1, got {chunks}")
+        return int(chunks)
+    queries, other = args[0], args[1]
+    q, m = queries.shape[0], other.shape[-2]
+    kernel = _KERNEL_OF[name]
+    if measure_enabled() and chunks_key(queries.device, q, m) \
+            not in REGISTRY.recorded(kernel):
+        measured_chunks_search(name, args, kwargs)
+    return resolve_chunks(kernel, queries.device, q, m)
 
 
 def _ptr(t: torch.Tensor | None):
@@ -268,12 +354,13 @@ def _topk_outputs(q: int, m: int, k: int, device, chunks: int):
 
 def scored_topk(queries: torch.Tensor, database: torch.Tensor,
                 valid: torch.Tensor | None, k: int, *, metric: str = "l2",
-                fused: bool | None = None
+                fused: bool | None = None, chunks: int | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-``k`` of ``queries`` [Q, K] against a shared ``database``
     [M, K]: exactly ``masked_topk(pairwise_scores(...), None, k)``, returned
     as ``(ids [Q, k] int32, scores [Q, k] f32)``.  ``fused=None`` resolves
-    through :func:`fused_topk_enabled`."""
+    through :func:`fused_topk_enabled`; ``chunks`` overrides the registry's
+    chunk count (the result does not depend on it)."""
     _check_metric(metric)
     k = _check_k(k)
     _check_queries(queries, database, "database")
@@ -289,7 +376,8 @@ def scored_topk(queries: torch.Tensor, database: torch.Tensor,
         return scored_topk_ref(queries, database, valid, k, metric)
     if q == 0 or m == 0:
         return _empty_topk(q, k, queries.device)
-    chunks = _num_chunks(queries.device, q, m)
+    chunks = _launch_chunks("scored_topk", (queries, database, valid, k),
+                            {"metric": metric, "fused": fused}, chunks)
     out_ids, out_s, part_s, part_m = _topk_outputs(q, m, k, queries.device,
                                                    chunks)
     lib = load_library()
@@ -308,7 +396,8 @@ scored_topk.launches = 0
 
 def scored_topk_gathered(queries: torch.Tensor, cand: torch.Tensor,
                          mask: torch.Tensor, ids: torch.Tensor, k: int, *,
-                         metric: str = "l2", fused: bool | None = None
+                         metric: str = "l2", fused: bool | None = None,
+                         chunks: int | None = None
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-query-candidates twin of :func:`scored_topk` (the IVF path):
     ``masked_topk(gathered_scores(...), ids, k)``, with ``ids`` [Q, M]
@@ -329,7 +418,9 @@ def scored_topk_gathered(queries: torch.Tensor, cand: torch.Tensor,
         return scored_topk_gathered_ref(queries, cand, mask, ids, k, metric)
     if q == 0 or m == 0:
         return _empty_topk(q, k, queries.device)
-    chunks = _gathered_chunks(queries.device, q, m)
+    chunks = _launch_chunks("scored_topk_gathered",
+                            (queries, cand, mask, ids, k),
+                            {"metric": metric, "fused": fused}, chunks)
     out_ids, out_s, part_s, part_m = _topk_outputs(q, m, k, queries.device,
                                                    chunks)
     lib = load_library()
@@ -346,6 +437,8 @@ def scored_topk_gathered(queries: torch.Tensor, cand: torch.Tensor,
 scored_topk_gathered.launches = 0
 
 
-__all__ = ["METRICS", "NEG_INF", "MAX_TOPK", "fused_topk_enabled",
+__all__ = ["METRICS", "NEG_INF", "MAX_TOPK", "PAIRWISE_KERNEL",
+           "GATHERED_KERNEL", "chunks_key", "resolve_chunks",
+           "chunk_candidates", "measured_chunks_search", "fused_topk_enabled",
            "pairwise_scores", "gathered_scores", "scored_topk",
            "scored_topk_gathered", "masked_topk"]

@@ -1,2 +1,2 @@
-"""Crash-safe GEE serving: the write-ahead log, snapshots, recovery and
-read replicas."""
+"""Serving: the LM decode server (``decode``, ``batching``) and crash-safe
+GEE serving (the write-ahead log, snapshots, recovery, read replicas)."""

@@ -293,17 +293,20 @@ def sweep() -> dict:
         seg_loads, span) and on ``lib`` instead of the built library."""
         if lib is not None:
             gs.load_library = lambda: lib
+        g = None
         if knobs:
-            gs.launch_geometry = lambda d, k, vec: geometry(d, k, vec, *knobs)
+            d, k = a[0].shape[1], (a[2] if name == "gee_spmm" else a[4])
+            g = geometry(d, k, gs._vec(a[0], a[1]), *knobs)
         try:
             if name == "gee_spmm":
-                return gs.launch_contraction(a[0], a[1], None, None, a[2])
+                return gs.launch_contraction(a[0], a[1], None, None, a[2],
+                                             geometry=g)
             return gs.launch_contraction(
                 a[0], a[1], a[2], a[3], a[4],
-                correlation=kw.get("correlation", True), eps=1e-30)
+                correlation=kw.get("correlation", True), eps=1e-30,
+                geometry=g)
         finally:
             gs.load_library = as_built
-            gs.launch_geometry = geometry
 
     def second_pass(a, kw, name):
         """The split rows' sums added by a second launch."""
