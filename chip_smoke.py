@@ -54,7 +54,16 @@ paths on the paper's 10k-node SBM and on the ``cl-100k-1d8-l5`` stand-in
   the host, a full forward (prefill + decode), and served by
   ``BatchedServer`` (8 slots, 32 requests) with every emitted token's
   logits held against a forward; one decode step at B = 64 with a
-  4,096-token cache timed beside its bytes bound.
+  4,096-token cache timed beside its bytes bound;
+* the MoE, SSM and hybrid decoders (phase 15): ``deepseek-moe-16b``,
+  ``mamba2-2.7b`` and ``recurrentgemma-2b`` at their published widths in
+  bf16 on seeded weights, each config's condition measured first; the
+  committed JAX fixtures (the MoE server's tokens too), card against host
+  and bf16 against f32 (deepseek cut to 2 layers for its f32 copy; tokens
+  routed apart counted; mamba2, chaotic in bf16, held layer by layer),
+  prefill + decode against a forward (recurrentgemma past its window, and
+  ``generate``), deepseek's server graphed against eager, mamba2's against
+  a forward, and one graphed step each beside its bytes bound.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; phase 11 counts its own checks apart, phase 12 its
@@ -152,6 +161,76 @@ STEP_SLEEP_CYCLES = 200_000_000
 # (unit roundoff 2^-4) would be off by ~16x that.
 F32_REL, F32_ATOL = 1e-4, 1e-5
 BF16_REL = 2.0 ** -8 * (6 * 28) ** 0.5
+# The MoE, SSM and hybrid decoders (phase 15): the published configs, the
+# committed JAX fixtures (reduced; the MoE one at capacity_factor 1.0, the
+# hybrid at 7 layers), the layers of deepseek-moe-16b's f32 copy (its full
+# depth would take 67.5 GB), the B x S of the f32 and bf16 checks, the
+# servers' slots, cache, requests (prompt and new-token ranges), mamba2's
+# prefill (a multiple of 128: the SSD at its published chunk) and decode,
+# recurrentgemma's prefill past its 2,048-token window and its decode, the
+# timed steps' batch and cache (mamba2's cache is its state, after a
+# 4,096-token prefill of every row), and deepseek's prefill read for its
+# drop share.
+FAMILY_ARCHS = ("deepseek-moe-16b", "mamba2-2.7b", "recurrentgemma-2b")
+FAMILY_FIXTURES = {
+    "deepseek-moe-16b": "tests/torch_fixtures/lm_deepseek_moe_reduced.npz",
+    "mamba2-2.7b": "tests/torch_fixtures/lm_mamba2_reduced.npz",
+    "recurrentgemma-2b": "tests/torch_fixtures/lm_recurrentgemma_l7.npz"}
+MOE_FIXTURE_FACTOR = 1.0
+MOE_F32_LAYERS = 2
+CHECK_BATCH, CHECK_SEQ = 4, 64
+FAMILY_SLOTS, FAMILY_MAX_LEN, FAMILY_REQUESTS = 8, 128, 16
+FAMILY_PROMPT, FAMILY_NEW = (4, 16), (8, 24)
+SSM_PREFILL, SSM_DECODE = 1024, 16
+HYBRID_PREFILL, HYBRID_DECODE = 2560, 64
+MOE_STEP_BATCH, MOE_STEP_CACHE = 8, 512
+SSM_STEP_BATCH, SSM_STEP_PROMPT = 64, 4096
+MOE_PREFILL_BATCH, MOE_PREFILL_SEQ = 4, 512
+# Phase 15's bf16 bounds, derived as phase 14's, 2^-8 * sqrt(r * L), but
+# with every rounding a layer puts on the residual path counted by itself
+# (phase 14 lumped the dense layer's into 6 kinds), since the MoE layer has
+# more than the dense one.  deepseek-moe-16b, cut to 2 layers: the
+# attention half's 6 (the norm output, q/k/v, the rotary cast, the
+# attention output, wo, the residual add) and the MoE half's 13 (the norm
+# output; the experts' gate/up outputs, SiLU, product and down output; the
+# router weights cast to bf16 and their product with the expert outputs;
+# the sum over the k choices cast back; the shared experts' gate/up, SiLU
+# product and down outputs and their add; the residual add): r = 19, L = 2
+# -> 0.0241.  mamba2-2.7b: the norm output, w_in, the conv (products and
+# sums, 2), its SiLU, the SSD's gated f32 output cast to bf16, the gated
+# norm, w_out, the residual add: r = 9, L = 64 -> 0.0938.
+# recurrentgemma-2b: a recurrent layer's 16 (the norm outputs, 2; the two
+# branch matmuls, 2; the GeLU; the conv, 2; the LRU's output cast and gate
+# product, 2; w_out; the FFN's gate/up, SiLU, product and down outputs, 4;
+# the residual adds, 2) and an attention layer's 12, 18 and 8 of them:
+# r = 15, L = 26 -> 0.0771.
+ROUNDINGS = {"deepseek-moe-16b": 19, "mamba2-2.7b": 9,
+             "recurrentgemma-2b": 15}
+FAMILY_DEPTH = {"deepseek-moe-16b": MOE_F32_LAYERS, "mamba2-2.7b": 64,
+                "recurrentgemma-2b": 26}
+FAMILY_BF16_REL = {a: 2.0 ** -8 * (ROUNDINGS[a] * FAMILY_DEPTH[a]) ** 0.5
+                   for a in ROUNDINGS}
+# A stack of random layers can amplify round-off past that walk.  Phase 15
+# measures it before it compares anything: S, the relative change of the
+# f32 logits when every embedding entry is moved by one f32 unit roundoff
+# (2^-23 times a standard normal), and kappa = S / 2^-23, the stack's
+# condition.  f32 comparisons (card against host, decode against a
+# forward) are held within max(F32_REL, 2^-23 * sqrt(r * L) * kappa): the
+# rounding walk, each rounding amplified at most as an input's.  Where a
+# bf16-sized input change would move the logits by O(1) (S * 2^15 >= 1:
+# the stack is chaotic in bf16), bf16 is not compared with f32 end to end:
+# each layer's contribution is held instead, fed the f32 run's input,
+# within 2^-8 * sqrt(r) * max(1, kappa_l), kappa_l that layer's own
+# condition measured the same way; the server and the decode path are held
+# in f32, and the timed bf16 step against the eager bf16 step.
+CHAOTIC_AT = 1.0
+# A bf16 run routes a token to other experts where its f32 router logits'
+# top-k margin lies within the round-off of the router's input h: each
+# logit h . w_e moves by at most |dh| |w_e| (Cauchy-Schwarz), |dh| <= eps |h|
+# with eps the layer's bf16 bound above, so two logits cross only within
+# ROUTER_FLIP_SLACK * eps * |h| * max_e |w_e|.  Tokens routed apart are
+# counted, not held to the logit bound.
+ROUTER_FLIP_SLACK = 2.0
 
 
 def say(line: str) -> None:
@@ -2409,13 +2488,6 @@ def lm_phase(torch, card, seed: int = 0) -> dict:
         raise AssertionError(f"{LM_ARCH} is not the published config: "
                              f"{widths}")
 
-    def tree_map(fn, tree):
-        if isinstance(tree, dict):
-            return {k: tree_map(fn, v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [tree_map(fn, v) for v in tree]
-        return fn(tree)
-
     def sync():
         torch.cuda.synchronize()
 
@@ -2459,11 +2531,11 @@ def lm_phase(torch, card, seed: int = 0) -> dict:
     # (c) card against host, f32
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                 compute_dtype="float32")
-    p32 = tree_map(lambda t: t.float(), params)
+    p32 = map_tree(lambda t: t.float(), params)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64))
                             .astype(np.int32))
     t0 = time.perf_counter()
-    want_host, _, _ = lm.forward(tree_map(lambda t: t.cpu(), p32),
+    want_host, _, _ = lm.forward(map_tree(lambda t: t.cpu(), p32),
                                  {"tokens": toks}, cfg32)
     host_s = time.perf_counter() - t0
     full32, _, _ = lm.forward(p32, {"tokens": toks.to(DEVICE)}, cfg32)
@@ -2683,6 +2755,770 @@ def lm_phase(torch, card, seed: int = 0) -> dict:
         f"{bound_ms:.3f} ms; rows vs f32 forward "
         f"{max(rows_err):.3g}; decode_32k's cache "
         f"({cut_bytes / 1e9:.0f} GB) does not fit one card")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the MoE, SSM and hybrid decoders at full width
+# ---------------------------------------------------------------------------
+
+# the published widths phase 15 must find in each config
+FAMILY_WIDTHS = {
+    "deepseek-moe-16b": dict(
+        family="moe", num_layers=28, d_model=2048, num_heads=16,
+        num_kv_heads=16, head_dim=128, vocab_size=102_400,
+        moe=dict(num_experts=64, top_k=6, d_expert=1408, num_shared=2,
+                 capacity_factor=1.25, router_z_loss=1e-3),
+        param_dtype="bfloat16", compute_dtype="bfloat16"),
+    "mamba2-2.7b": dict(
+        family="ssm", num_layers=64, d_model=2560, vocab_size=50_280,
+        ssm=dict(state_dim=128, head_dim=64, expand=2, conv_width=4,
+                 chunk=128),
+        param_dtype="bfloat16", compute_dtype="bfloat16"),
+    "recurrentgemma-2b": dict(
+        family="hybrid", num_layers=26, d_model=2560, num_heads=10,
+        num_kv_heads=1, d_ff=7680, head_dim=256, vocab_size=256_000,
+        sliding_window=2048, tie_embeddings=True,
+        rglru=dict(lru_width=2560, conv_width=4, c_exponent=8.0,
+                   block_pattern=("rec", "rec", "attn")),
+        param_dtype="bfloat16", compute_dtype="bfloat16")}
+FAMILY_PARAM_COUNTS = {"deepseek-moe-16b": 16_879_626_240,
+                       "mamba2-2.7b": 2_830_946_816,
+                       "recurrentgemma-2b": 2_658_664_960}
+
+
+def map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_bytes(lm, tree) -> int:
+    return sum(p.numel() * p.element_size() for p in lm.param_tensors(tree))
+
+
+def serve_requests(rng, vocab, n, prompt, new):
+    from repro_torch.serve.batching import Request
+
+    return [Request(uid=i, prompt=rng.integers(
+                0, vocab, int(rng.integers(prompt[0], prompt[1] + 1)))
+                .astype(np.int32),
+                max_new_tokens=int(rng.integers(new[0], new[1] + 1)))
+            for i in range(n)]
+
+
+def run_server(torch, server, reqs) -> dict:
+    """Serve ``reqs`` through ``server``, recording every emitted token's
+    logits (by request and position), each decode call's host time (ending
+    in a sync) and the calls that were prefill or ticks."""
+    rec, call_ms, calls = {}, [], {"prefill": 0, "tick": 0}
+    orig = server._decode
+
+    def wrapped(p, c, t, pos, rows):
+        t0 = time.perf_counter()
+        logits, c = orig(p, c, t, pos, rows)
+        torch.cuda.synchronize()
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+        tick = False
+        for s in rows:
+            req = server.slot_req[s]
+            if pos >= len(req.prompt) - 1:
+                rec.setdefault(req.uid, {})[pos] = logits[s, 0].clone()
+                tick = True
+        calls["tick" if tick else "prefill"] += 1
+        return logits, c
+
+    server._decode = wrapped
+    for r in reqs:
+        server.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = server.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(done) != len(reqs):
+        raise AssertionError(f"{len(done)} of {len(reqs)} finished")
+    tokens = sum(len(r.output) for r in done)
+    if server.stats["tokens_out"] != tokens:
+        raise AssertionError("stats['tokens_out'] disagrees")
+    lat = np.asarray(call_ms)
+    return {"done": {r.uid: r for r in done}, "rec": rec,
+            "summary": {"requests": len(reqs), "tokens_out": tokens,
+                        "wall_s": wall, "tokens_per_s": tokens / wall,
+                        "decode_call_ms_p50": float(np.percentile(lat, 50)),
+                        "decode_call_ms_p95": float(np.percentile(lat, 95)),
+                        "decode_calls": dict(calls),
+                        "ticks": server.stats["ticks"]}}
+
+
+def fixture_phase(torch, arch, cfg) -> dict:
+    """(b): the committed JAX fixture (reduced) against the port's f32
+    forward and prefill + decode on the card; the MoE one's server tokens
+    from ``BatchedServer`` on the card (graphed)."""
+    import dataclasses
+
+    from repro_torch.convert import lm_params_from_reference, tree_from_flat
+    from repro_torch.models import lm
+    from repro_torch.serve.batching import BatchedServer, Request
+
+    with np.load(os.path.join(REPO, FAMILY_FIXTURES[arch])) as f:
+        fix = {k: f[k] for k in f.files}
+    rcfg = cfg.reduced()
+    if "num_layers" in fix:
+        rcfg = dataclasses.replace(rcfg, num_layers=int(fix["num_layers"]))
+    if rcfg.moe is not None:
+        rcfg = dataclasses.replace(rcfg, moe=dataclasses.replace(
+            rcfg.moe, capacity_factor=MOE_FIXTURE_FACTOR))
+    params = lm_params_from_reference(tree_from_flat(fix, "param/"), rcfg,
+                                      device=DEVICE)
+    toks = torch.from_numpy(fix["tokens"]).to(DEVICE)
+    half = int(fix["prefill_len"])
+    logits, _, aux = lm.forward(params, {"tokens": toks}, rcfg)
+    out = {"layers": rcfg.num_layers,
+           "period_scanned": rcfg.use_period_scan,
+           "forward_rel_err": hold(
+               torch, logits, torch.from_numpy(fix["logits_forward"]),
+               F32_REL)}
+    for key in aux:
+        out[f"aux_{key}_err"] = abs(float(aux[key])
+                                    - float(fix[f"aux/{key}"]))
+        if not out[f"aux_{key}_err"] <= F32_REL * abs(
+                float(fix[f"aux/{key}"])) + F32_ATOL:
+            raise AssertionError(f"aux {key}: {float(aux[key])} against "
+                                 f"{float(fix[f'aux/{key}'])}")
+    lg, caches, _ = lm.forward(params, {"tokens": toks[:, :half]}, rcfg,
+                               mode="prefill", cache_len=toks.shape[1])
+    outs = [lg[:, -1:]]
+    for step in range(half, toks.shape[1]):
+        lg, caches = lm.decode_step(params, toks[:, step:step + 1], caches,
+                                    step, rcfg)
+        outs.append(lg)
+    out["decode_rel_err"] = hold(torch, torch.cat(outs, 1),
+                                 torch.from_numpy(fix["logits_decode"]),
+                                 F32_REL)
+    uids = sorted(int(k.split("/")[1]) for k in fix if k.startswith("server/"))
+    if uids:
+        server = BatchedServer(params, rcfg,
+                               batch_slots=int(fix["server_slots"]),
+                               max_len=int(fix["server_max_len"]),
+                               device=DEVICE)
+        for uid in uids:
+            server.submit(Request(uid=uid,
+                                  prompt=fix[f"server_prompt/{uid}"],
+                                  max_new_tokens=int(fix[f"server_new/{uid}"])))
+        done = {r.uid: r.output for r in server.run()}
+        for uid in uids:
+            if done[uid] != fix[f"server/{uid}"].tolist():
+                raise AssertionError(f"request {uid}: {done[uid]} against "
+                                     f"the reference server's "
+                                     f"{fix[f'server/{uid}'].tolist()}")
+        out["server_requests_equal"] = len(uids)
+        out["server_tokens"] = sum(len(v) for v in done.values())
+    return out
+
+
+def route_spy(torch, moe_mod, records):
+    """A stand-in for ``moe.moe_forward`` (the one installed when it is
+    made) that records, a call, each token's top-k expert set and kept
+    (within capacity) set [T, E], its f32 router logits and the 2-norm of
+    the router's input row, on the host."""
+    orig = moe_mod.moe_forward
+
+    def spy(params, x, m):
+        y, aux = orig(params, x, m)
+        xf = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        logits = xf @ params["router"]
+        t_ = xf.shape[0]
+        r = moe_mod.route(logits, m, moe_mod.capacity(t_, m))
+        kept = torch.zeros(t_ * m.top_k, dtype=torch.bool, device=x.device)
+        kept[r["sort_idx"]] = r["keep"]
+        top = torch.zeros((t_, m.num_experts), dtype=torch.bool,
+                          device=x.device)
+        kept_set = top.clone()
+        top.scatter_(1, r["top_e"], True)
+        kept_set.scatter_(1, r["top_e"], kept.view(t_, m.top_k))
+        records.append({"top": top.cpu(), "kept": kept_set.cpu(),
+                        "logits": logits.cpu(),
+                        "h_norm": xf.norm(dim=-1).cpu(),
+                        "w_norm": float(params["router"].norm(dim=0).max())})
+        return y, aux
+
+    return spy
+
+
+def routing_flips(torch, rec32, rec16, k, eps) -> dict:
+    """Tokens whose expert set differs between two runs (``rec32`` the
+    reference, e.g. f32, ``rec16`` the other) in any layer: ``flipped``
+    (the top-k set differs) and ``knock_on`` (the same top-k, a different
+    kept set: another token's flip took or freed capacity).  Each flip's
+    top-k margin in the reference's router logits is held below
+    ``ROUTER_FLIP_SLACK * eps * |h| * max_e |w_e|``."""
+    if len(rec32) != len(rec16) or not rec32:
+        raise AssertionError(f"{len(rec32)} and {len(rec16)} MoE layers "
+                             f"recorded")
+    t_ = rec32[0]["top"].shape[0]
+    flipped = torch.zeros(t_, dtype=torch.bool)
+    kept_differs = flipped.clone()
+    worst = 0.0
+    for a, b in zip(rec32, rec16):
+        f = (a["top"] != b["top"]).any(-1)
+        flipped |= f
+        kept_differs |= (a["kept"] != b["kept"]).any(-1)
+        if bool(f.any()):
+            srt = a["logits"][f].sort(dim=-1, descending=True).values
+            margin = srt[:, k - 1] - srt[:, k]
+            bound = ROUTER_FLIP_SLACK * eps * a["h_norm"][f] * a["w_norm"]
+            ratio = float((margin / bound).max())
+            worst = max(worst, ratio)
+            if ratio > 1.0:
+                raise AssertionError(f"a routing flip at an f32 margin "
+                                     f"{ratio:.3g} times its round-off bound")
+    knock = kept_differs & ~flipped
+    return {"tokens": t_, "flipped": int(flipped.sum()),
+            "knock_on": int(knock.sum()),
+            "held": int((~(flipped | knock)).sum()),
+            "worst_margin_over_bound": worst,
+            "differs": flipped | knock}
+
+
+def hold_routed(torch, got, want, rec_got, rec_want, k, rel) -> dict:
+    """``hold`` over the tokens ([B, S] of ``got`` / ``want``) that both
+    runs routed alike in every MoE layer; the others counted by
+    ``routing_flips``, each flip's margin held under its bound."""
+    flips = routing_flips(torch, rec_want, rec_got, k, rel)
+    held = ~flips.pop("differs").view(got.shape[:2]).to(got.device)
+    err = (hold(torch, got[held], want.to(got.device)[held], rel)
+           if bool(held.any()) else None)
+    return {"bound": rel, "rel_err_held_tokens": err, **flips}
+
+
+def layer_contributions(torch, lm, params, p32, cfg, cfg32, toks, r,
+                        seed) -> dict:
+    """Each layer's contribution (its output less its input) in bf16, fed
+    the f32 run's input, against the f32 layer's, within 2^-8 * sqrt(r) *
+    max(1, kappa_l); kappa_l is the f32 contribution's relative change from
+    one unit roundoff of its input, over 2^-23.  An MoE layer holds the
+    tokens both runs routed alike (``routing_flips``)."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import rope_tables
+
+    inputs = []
+    orig = lm._apply_block
+
+    def spy(lp, x, *args, **kw):
+        inputs.append(x)
+        return orig(lp, x, *args, **kw)
+
+    lm._apply_block = spy
+    try:
+        lm.forward(p32, {"tokens": toks}, cfg32)
+    finally:
+        lm._apply_block = orig
+    b, s = toks.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=toks.device).expand(b, s)
+    rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta,
+                       cfg.rope)
+    gen = torch.Generator(device=toks.device)
+    gen.manual_seed(seed + 4)
+
+    def contribution(lp, x, c, layer_type):
+        return orig(lp, x, positions, c, layer_type, mode="train",
+                    rope=rope)[0].float() - x.float()
+
+    worst, kappas, errs, routed_apart = 0.0, [], [], 0
+    for i, layer_type in enumerate(cfg.layer_pattern):
+        x = inputs[i]
+        want = contribution(p32["layers"][i], x, cfg32, layer_type)
+        top = float(want.abs().max())
+        moved = x * (1 + 2.0 ** -23 * torch.randn(x.shape, generator=gen,
+                                                  device=x.device))
+        kappa = float((contribution(p32["layers"][i], moved, cfg32,
+                                    layer_type) - want).abs().max()) / top \
+            / 2.0 ** -23
+        bound = 2.0 ** -8 * r ** 0.5 * max(1.0, kappa)
+        held = slice(None)
+        if cfg.moe is None or layer_type == "ssm":
+            got = contribution(params["layers"][i],
+                               x.to(params["embed"].dtype), cfg, layer_type)
+        else:                        # tokens routed apart are not held
+            rec32, rec16 = [], []
+            spy32 = route_spy(torch, moe_mod, rec32)
+            spy16 = route_spy(torch, moe_mod, rec16)
+            plain = moe_mod.moe_forward
+            try:
+                moe_mod.moe_forward = spy32
+                contribution(p32["layers"][i], x, cfg32, layer_type)
+                moe_mod.moe_forward = spy16
+                got = contribution(params["layers"][i],
+                                   x.to(params["embed"].dtype), cfg,
+                                   layer_type)
+            finally:
+                moe_mod.moe_forward = plain
+            flips = routing_flips(torch, rec32, rec16, cfg.moe.top_k, bound)
+            held = ~flips["differs"].view(b, s).to(x.device)
+            routed_apart += flips["flipped"] + flips["knock_on"]
+        err = float((got[held] - want[held]).abs().max()) / top
+        if not err <= bound:
+            raise AssertionError(f"layer {i}: bf16 contribution {err:.4g} "
+                                 f"of max|want| > {bound:.4g} (kappa "
+                                 f"{kappa:.3g})")
+        worst = max(worst, err / bound)
+        kappas.append(kappa)
+        errs.append(err)
+    return {"layers": len(errs), "token_layers_routed_apart": routed_apart,
+            "max_rel_err": max(errs),
+            "median_rel_err": float(np.median(errs)),
+            "max_err_over_bound": worst, "kappa_max": max(kappas),
+            "kappa_median": float(np.median(kappas))}
+
+
+def family_phase(torch, card, arch, where: list, seed: int = 0) -> dict:
+    """Phase 15 for one config at its published widths, bf16, random
+    seeded weights: (a) the weights on the card and their element count;
+    (b) the JAX fixture; (c) an f32 copy, card against host (deepseek cut to
+    ``MOE_F32_LAYERS`` layers); (d) bf16 against that f32 copy (deepseek:
+    routing flips counted, the other tokens held); (e) prefill + decode
+    against a forward (mamba2, recurrentgemma); (f) deepseek's server
+    graphed, replayed eager; (g) mamba2's server against a forward; (h) the
+    timings.  ``where[0]`` names the check running.  Returns the
+    numbers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve.batching import BatchedServer
+    from repro_torch.serve.decode import GraphedDecodeStep, generate
+
+    out = {}
+    rng = np.random.default_rng(seed)
+    cfg = get_config(arch)
+    have = dataclasses.asdict(cfg)
+    for key, want in FAMILY_WIDTHS[arch].items():
+        got = have[key]
+        if isinstance(want, dict):
+            got = {k: got[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{arch}: {key} {got}, published {want}")
+    eps = FAMILY_BF16_REL[arch]
+
+    def sync():
+        torch.cuda.synchronize()
+
+    # (a) weights
+    where[0] = "(a) weights"
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed, device=DEVICE)
+    sync()
+    n = sum(p.numel() for p in lm.param_tensors(params))
+    nbytes = tree_bytes(lm, params)
+    if n != lm.tree_size_from_param_count(cfg) \
+            or cfg.param_count() != FAMILY_PARAM_COUNTS[arch]:
+        raise AssertionError(f"{arch}: {n} parameter elements, param_count "
+                             f"{cfg.param_count()}")
+    out["a"] = {"param_count": cfg.param_count(), "tree_elements": n,
+                "bytes": nbytes, "init_s": time.perf_counter() - t0}
+
+    # (b) the reference fixture
+    where[0] = "(b) JAX fixture"
+    out["b"] = fixture_phase(torch, arch, cfg)
+
+    # (c) card against host, f32 (deepseek: its first layers)
+    where[0] = "(c) the f32 runs"
+    cut_cfg, cut = cfg, params
+    if cfg.moe is not None:
+        cut_cfg = dataclasses.replace(cfg, num_layers=MOE_F32_LAYERS)
+        cut = dict(params, layers=params["layers"][:MOE_F32_LAYERS])
+    cfg32 = dataclasses.replace(cut_cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    p32 = map_tree(lambda t: t.float(), cut)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (CHECK_BATCH, CHECK_SEQ))
+                            .astype(np.int32))
+    # every run's routing, recorded by one spy each (made while the
+    # layer is the plain one)
+    records = {"host": [], "f32": [], "bf16": []}
+    orig = moe_mod.moe_forward
+    spies = {k: route_spy(torch, moe_mod, v) for k, v in records.items()}
+    try:
+        moe_mod.moe_forward = spies["host"]
+        t0 = time.perf_counter()
+        want_host, _, _ = lm.forward(map_tree(lambda t: t.cpu(), p32),
+                                     {"tokens": toks}, cfg32)
+        host_s = time.perf_counter() - t0
+        moe_mod.moe_forward = spies["f32"]
+        full32, _, _ = lm.forward(p32, {"tokens": toks.to(DEVICE)}, cfg32)
+        moe_mod.moe_forward = spies["bf16"]
+        full16, _, _ = lm.forward(cut, {"tokens": toks.to(DEVICE)}, cut_cfg)
+    finally:
+        moe_mod.moe_forward = orig
+    # the stack's condition: the f32 logits' change from one unit
+    # roundoff of every embedding entry
+    where[0] = "(c) the stack's condition"
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 3)
+    moved = dict(p32, embed=p32["embed"] * (1 + 2.0 ** -23 * torch.randn(
+        p32["embed"].shape, generator=gen, device=DEVICE)))
+    moved_logits, _, _ = lm.forward(moved, {"tokens": toks.to(DEVICE)},
+                                    cfg32)
+    sens = float((moved_logits - full32).abs().max() / full32.abs().max())
+    del moved, moved_logits
+    kappa = sens / 2.0 ** -23
+    walk = (ROUNDINGS[arch] * cut_cfg.num_layers) ** 0.5
+    f32_rel = max(F32_REL, 2.0 ** -23 * walk * kappa)
+    chaotic = sens * 2.0 ** 15 >= CHAOTIC_AT
+    out["condition"] = {"one_ulp_logit_change": sens, "kappa": kappa,
+                        "f32_bound": f32_rel, "chaotic_in_bf16": chaotic}
+    out["c"] = {"layers": cut_cfg.num_layers, "bound": f32_rel,
+                "f32_bytes": tree_bytes(lm, p32), "host_forward_s": host_s}
+    where[0] = "(c) card vs host"
+    if cfg.moe is None:
+        out["c"]["rel_err"] = hold(torch, full32, want_host, f32_rel)
+    else:
+        out["c"].update(hold_routed(torch, full32, want_host, records["f32"],
+                                    records["host"], cfg.moe.top_k,
+                                    f32_rel))
+    del want_host
+
+    # (d) bf16 against f32 of the same weights
+    where[0] = "(d) bf16 vs f32"
+    if chaotic:
+        out["d"] = {"bound": None, "end_to_end_rel_err_recorded": float(
+            (full16 - full32).abs().max() / full32.abs().max()),
+            "layers": layer_contributions(torch, lm, cut, p32, cut_cfg,
+                                          cfg32, toks.to(DEVICE),
+                                          ROUNDINGS[arch], seed)}
+    elif cfg.moe is None:
+        out["d"] = {"bound": eps,
+                    "rel_err": hold(torch, full16, full32, eps)}
+    else:
+        out["d"] = hold_routed(torch, full16, full32, records["bf16"],
+                               records["f32"], cfg.moe.top_k, eps)
+    del full16, records
+
+    # (e) prefill + decode against a forward
+    if cfg.family == "ssm":
+        b, s0, s1 = 2, SSM_PREFILL, SSM_PREFILL + SSM_DECODE
+    elif cfg.family == "hybrid":
+        b, s0, s1 = 1, HYBRID_PREFILL, HYBRID_PREFILL + HYBRID_DECODE
+    if cfg.family in ("ssm", "hybrid"):
+        where[0] = "(e) prefill + decode"
+        seq = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s1))
+                               .astype(np.int32)).to(DEVICE)
+
+        def prefill_decode(p, c):
+            lg, caches, _ = lm.forward(p, {"tokens": seq[:, :s0]}, c,
+                                       mode="prefill", cache_len=s1)
+            outs = [lg[:, -1:]]
+            for step in range(s0, s1):
+                lg, caches = lm.decode_step(p, seq[:, step:step + 1], caches,
+                                            step, c)
+                outs.append(lg)
+            return torch.cat(outs, 1)
+
+        want, _, _ = lm.forward(p32, {"tokens": seq}, cfg32)
+        want = want[:, s0 - 1:]
+        out["e"] = {"batch": b, "prefill": s0, "decode": s1 - s0,
+                    "f32_rel_err": hold(torch, prefill_decode(p32, cfg32),
+                                        want, f32_rel)}
+        lo = prefill_decode(params, cfg)
+        if chaotic:                  # recorded, not held (see ROUNDINGS)
+            out["e"]["bf16_rel_err_recorded"] = float(
+                (lo - want).abs().max() / want.abs().max())
+        else:
+            out["e"]["bf16_rel_err"] = hold(torch, lo, want, eps)
+        del lo
+        if cfg.family == "hybrid":
+            # greedy through generate: each token the argmax of an f32
+            # forward over the output, until a near tie
+            gen = generate(p32, cfg32, seq[:, :s0], max_new_tokens=s1 - s0)
+            ref, _, _ = lm.forward(p32, {"tokens": gen}, cfg32)
+            ref = ref[0, s0 - 1:s1 - 1, :cfg.vocab_size]
+            top2 = ref.topk(2, dim=-1).values
+            tol = f32_rel * float(ref.abs().max()) + F32_ATOL
+            agree = 0
+            for j in range(s1 - s0):
+                if float(top2[j, 0] - top2[j, 1]) <= 10 * tol:
+                    break
+                if int(gen[0, s0 + j]) != int(ref[j].argmax()):
+                    raise AssertionError(f"generate's token {j} is not the "
+                                         f"forward's argmax")
+                agree += 1
+            out["e"]["generate_tokens_checked"] = agree
+            del gen, ref
+        del want
+
+    # (f) deepseek's server, graphed, then replayed eager
+    if cfg.moe is not None:
+        where[0] = "(f) the MoE server"
+
+        def reqs():
+            return serve_requests(np.random.default_rng(seed + 1),
+                                  cfg.vocab_size, FAMILY_REQUESTS,
+                                  FAMILY_PROMPT, FAMILY_NEW)
+
+        graphed = run_server(torch, BatchedServer(
+            params, cfg, FAMILY_SLOTS, FAMILY_MAX_LEN, seed=seed,
+            device=DEVICE), reqs())
+        eager_server = BatchedServer(params, cfg, FAMILY_SLOTS,
+                                     FAMILY_MAX_LEN, seed=seed, device=DEVICE)
+        eager_server._decode = lambda p, c, t, pos, rows: lm.decode_step(
+            p, t, c, pos, cfg, rows=rows)
+        eager = run_server(torch, eager_server, reqs())
+        errs = []
+        for uid, req in graphed["done"].items():
+            if req.output != eager["done"][uid].output:
+                raise AssertionError(f"request {uid}: graphed "
+                                     f"{req.output} against eager "
+                                     f"{eager['done'][uid].output}")
+            for pos, lg in graphed["rec"][uid].items():
+                errs.append(hold(torch, lg, eager["rec"][uid][pos], F32_REL))
+        out["f"] = {"slots": FAMILY_SLOTS, "max_len": FAMILY_MAX_LEN,
+                    "graphed": graphed["summary"],
+                    "eager": eager["summary"],
+                    "max_rel_err_graphed_vs_eager": max(errs),
+                    "kv_cache_bytes": sum(
+                        leaf.numel() * leaf.element_size()
+                        for _, leaf, _ in lm.cache_leaves(
+                            eager_server.caches))}
+        del graphed, eager, eager_server
+
+    # (g) mamba2's server against a forward (chaotic in bf16: the server
+    # in f32 is held, the bf16 one timed)
+    if cfg.family == "ssm":
+        where[0] = "(g) the SSM server"
+
+        def reqs():
+            return serve_requests(np.random.default_rng(seed + 2),
+                                  cfg.vocab_size, FAMILY_REQUESTS,
+                                  FAMILY_PROMPT, FAMILY_NEW)
+
+        timed = run_server(torch, BatchedServer(
+            params, cfg, FAMILY_SLOTS, FAMILY_MAX_LEN, seed=seed,
+            device=DEVICE), reqs())
+        for req in timed["done"].values():
+            if max(req.output) >= cfg.vocab_size:
+                raise AssertionError("a padded id was emitted")
+        served, bound = timed, eps
+        if chaotic:
+            served = run_server(torch, BatchedServer(
+                p32, cfg32, FAMILY_SLOTS, FAMILY_MAX_LEN, seed=seed,
+                device=DEVICE), reqs())
+            bound = f32_rel
+        errs = []
+        for uid, req in served["done"].items():
+            seq = np.concatenate([req.prompt, np.asarray(req.output,
+                                                         np.int32)])
+            want32, _, _ = lm.forward(p32, {"tokens": torch.from_numpy(seq)
+                                            [None].to(DEVICE)}, cfg32)
+            p0 = len(req.prompt) - 1
+            got = torch.stack([served["rec"][uid][p0 + j]
+                               for j in range(len(req.output))])
+            errs.append(hold(torch, got,
+                             want32[0, p0:p0 + len(req.output)], bound))
+        out["g"] = {"slots": FAMILY_SLOTS, "max_len": FAMILY_MAX_LEN,
+                    **timed["summary"], "held_in": "f32" if chaotic
+                    else "bf16", "bound": bound,
+                    "held_tokens": sum(len(r.output)
+                                       for r in served["done"].values()),
+                    "max_rel_err_vs_f32_forward": max(errs)}
+        del served, timed
+
+    # (h) one graphed decode step beside its bytes bound
+    where[0] = "(h) the timed step"
+    embed_bytes = params["embed"].numel() * params["embed"].element_size()
+    row_bytes = cfg.d_model * params["embed"].element_size()
+    if cfg.moe is not None or cfg.family == "ssm":
+        if cfg.moe is not None:
+            b, cache_len = MOE_STEP_BATCH, MOE_STEP_CACHE
+            caches = lm.init_caches(cfg, b, cache_len, device=DEVICE)
+            pos = cache_len // 2
+            tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 1))
+                                   .astype(np.int32)).to(DEVICE)
+            fill_s, rows_err = None, None
+        else:
+            b, cache_len = SSM_STEP_BATCH, None
+            caches = lm.init_caches(cfg, b, 1, device=DEVICE)
+            prompts = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (b, SSM_STEP_PROMPT + 1))
+                .astype(np.int32)).to(DEVICE)
+            t0 = time.perf_counter()
+            for row in range(0, b, 2):
+                rs = slice(row, row + 2)
+                _, c, _ = lm.forward(params,
+                                     {"tokens": prompts[rs, :SSM_STEP_PROMPT]},
+                                     cfg, mode="prefill")
+                for name in caches:
+                    caches[name][:, rs] = c[name]
+                del c
+            sync()
+            fill_s = time.perf_counter() - t0
+            pos = SSM_STEP_PROMPT
+            tok = prompts[:, SSM_STEP_PROMPT:]
+        # every weight but the embedding (B rows of it), the caches read
+        # once, the SSM's state and conv tails written once
+        cache_bytes = sum(leaf.numel() * leaf.element_size()
+                          for _, leaf, _ in lm.cache_leaves(caches))
+        written = cache_bytes if cfg.family == "ssm" else 0
+        bound_ms = ((nbytes - embed_bytes + b * row_bytes + cache_bytes
+                     + written) / HBM_BYTES_PER_S * 1e3)
+        step = GraphedDecodeStep(params, caches, cfg)
+        before = ({k: v.clone() for k, v in caches.items()}
+                  if cfg.family == "ssm" and chaotic else None)
+        logits = step(tok, pos).clone()
+        step_ms = gpu_ms(torch, lambda: step(tok, pos), reps=10, warmup=1,
+                         sleep_cycles=STEP_SLEEP_CYCLES)
+        step_host_ms = host_ms(torch, lambda: step(tok, pos), reps=5)
+        if before is not None:
+            # chaotic in bf16: every row against the eager step on the
+            # state the graphed one started from
+            eager, _ = lm.decode_step(params, tok, before, pos, cfg)
+            rows_err = [hold(torch, logits, eager, F32_REL)]
+            del before, eager
+        elif cfg.family == "ssm":
+            # rows 0 and B-1 against the f32 prefill + one f32 decode step
+            rows_err = []
+            for row in (0, b - 1):
+                _, c32, _ = lm.forward(
+                    p32, {"tokens": prompts[row:row + 1, :SSM_STEP_PROMPT]},
+                    cfg32, mode="prefill")
+                want32, _ = lm.decode_step(p32, tok[row:row + 1], c32, pos,
+                                           cfg32)
+                rows_err.append(hold(torch, logits[row, 0], want32[0, 0],
+                                     eps))
+                del c32
+        out["h_step"] = {"batch": b, "cache_len": cache_len,
+                         "cache_bytes": cache_bytes, "fill_s": fill_s,
+                         "weight_bytes": nbytes,
+                         "step_ms_median_of_10": step_ms,
+                         "step_host_ms_median_of_5": step_host_ms,
+                         "bound_ms": bound_ms, "bound_by": "bytes",
+                         "rows_rel_err_vs_f32": rows_err,
+                         "peak_bytes": torch.cuda.max_memory_allocated()}
+        del step, caches, logits
+    if cfg.moe is not None:
+        # the share of (token, choice) pairs a full-width prefill drops
+        where[0] = "(h) the prefill's drops"
+        ptoks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (MOE_PREFILL_BATCH, MOE_PREFILL_SEQ))
+            .astype(np.int32)).to(DEVICE)
+        t0 = time.perf_counter()
+        _, _, aux = lm.forward(params, {"tokens": ptoks}, cfg)
+        sync()
+        out["h_prefill"] = {
+            "batch": MOE_PREFILL_BATCH, "seq": MOE_PREFILL_SEQ,
+            "capacity": moe_mod.capacity(
+                MOE_PREFILL_BATCH * MOE_PREFILL_SEQ, cfg.moe),
+            "drop_fraction_summed_over_layers": float(aux["drop_fraction"]),
+            "drop_fraction_mean_a_layer": float(aux["drop_fraction"])
+            / cfg.num_layers,
+            "load_balance_loss_summed": float(aux["load_balance_loss"]),
+            "forward_s": time.perf_counter() - t0}
+    del params, p32, cut, full32
+    torch.cuda.empty_cache()
+    return out
+
+
+def families_phase(torch, card, seed: int = 0) -> dict:
+    """Phase 15: ``deepseek-moe-16b``, ``mamba2-2.7b`` and
+    ``recurrentgemma-2b`` at their published widths and depth in bf16 (see
+    ``family_phase``), one after another, each freed before the next.
+    Prints one line; returns the numbers."""
+    import gc
+
+    if torch.backends.cuda.matmul.allow_tf32 \
+            or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("f32 matmuls would run in TF32")
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    out = {}
+    for arch in FAMILY_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        where = ["start"]
+        try:
+            out[arch] = family_phase(torch, card, arch, where, seed)
+        except Exception as exc:
+            raise AssertionError(f"phase 15 {arch} {where[0]}: {exc}") \
+                from exc
+        out[arch]["phase_s"] = time.perf_counter() - t0
+    def num(x):
+        return "n/a" if x is None else f"{x:.3g}"
+
+    parts = []
+    for a in FAMILY_ARCHS:
+        o = out[a]
+        c, d, e = o["c"], o["d"], o.get("e", {})
+        txt = (f"{a} (a) {o['a']['tree_elements']:,} elements, "
+               f"{o['a']['bytes'] / 1e9:.2f} GB bf16, seeded in "
+               f"{o['a']['init_s']:.1f} s; (b) fixture "
+               f"{num(o['b']['forward_rel_err'])} / "
+               f"{num(o['b']['decode_rel_err'])}; condition kappa "
+               f"{o['condition']['kappa']:.3g} (one ulp of the embeddings "
+               f"moves the logits {o['condition']['one_ulp_logit_change']:.3g}"
+               f"); (c) f32 card vs host "
+               f"{num(c.get('rel_err', c.get('rel_err_held_tokens')))} "
+               f"(bound {c['bound']:.3g}, {c['layers']} layers")
+        if "flipped" in c:
+            txt += f", {c['flipped']} tokens routed apart"
+        txt += "); (d) bf16 vs f32 "
+        if d.get("layers"):
+            lay = d["layers"]
+            txt += (f"per layer {num(lay['max_rel_err'])} (worst "
+                    f"{lay['max_err_over_bound']:.3g} of its bound, kappa_l "
+                    f"up to {lay['kappa_max']:.3g}), end to end "
+                    f"{num(d['end_to_end_rel_err_recorded'])} recorded")
+        else:
+            txt += (f"{num(d.get('rel_err', d.get('rel_err_held_tokens')))} "
+                    f"(bound {d['bound']:.4f}")
+            if "flipped" in d:
+                txt += (f"; {d['held']} of {d['tokens']} tokens held, "
+                        f"{d['flipped']} routed apart, {d['knock_on']} "
+                        f"knock-ons, worst flip margin "
+                        f"{d['worst_margin_over_bound']:.3g} of its bound")
+            txt += ")"
+        if e:
+            txt += (f"; (e) prefill {e['prefill']} + decode {e['decode']} vs "
+                    f"forward f32 {num(e['f32_rel_err'])}, bf16 "
+                    f"{num(e.get('bf16_rel_err', e.get('bf16_rel_err_recorded')))}"
+                    + (" recorded" if "bf16_rel_err_recorded" in e else ""))
+            if "generate_tokens_checked" in e:
+                txt += (f", generate's {e['generate_tokens_checked']} "
+                        f"tokens the forward's argmax")
+        if "f" in o:
+            f = o["f"]
+            txt += (f"; (f) {f['graphed']['tokens_out']} tokens at "
+                    f"{f['graphed']['tokens_per_s']:.1f} tok/s, call p50 "
+                    f"{f['graphed']['decode_call_ms_p50']:.2f} p95 "
+                    f"{f['graphed']['decode_call_ms_p95']:.2f} ms (eager "
+                    f"{f['eager']['tokens_per_s']:.1f} tok/s, p50 "
+                    f"{f['eager']['decode_call_ms_p50']:.2f} ms), the same "
+                    f"tokens, logits {num(f['max_rel_err_graphed_vs_eager'])}"
+                    f" apart")
+        if "g" in o:
+            g = o["g"]
+            txt += (f"; (g) {g['tokens_out']} tokens at "
+                    f"{g['tokens_per_s']:.1f} tok/s, call p50 "
+                    f"{g['decode_call_ms_p50']:.2f} p95 "
+                    f"{g['decode_call_ms_p95']:.2f} ms, held in {g['held_in']}"
+                    f" vs an f32 forward {num(g['max_rel_err_vs_f32_forward'])}")
+        if "h_step" in o:
+            h = o["h_step"]
+            txt += (f"; (h) the B = {h['batch']} step "
+                    f"{h['step_ms_median_of_10']:.3f} ms (host "
+                    f"{h['step_host_ms_median_of_5']:.3f}) beside its bytes "
+                    f"bound {h['bound_ms']:.3f} ms")
+        if "h_prefill" in o:
+            txt += (f", a {MOE_PREFILL_BATCH} x {MOE_PREFILL_SEQ} prefill "
+                    f"drops {o['h_prefill']['drop_fraction_mean_a_layer']:.4f}"
+                    f" of its choices a layer")
+        parts.append(txt + f"; {o['phase_s']:.0f} s")
+    say(f"phase 15 MoE, SSM and hybrid decoders at full width ({card}): "
+        + " | ".join(parts))
     return out
 
 
@@ -3383,6 +4219,10 @@ def main() -> int:
     del captured, rcaptured, prepared
     torch.cuda.empty_cache()
     report["lm"] = lm_phase(torch, card)
+
+    # -- phase 15: the MoE, SSM and hybrid decoders at full width ---------------
+    torch.cuda.empty_cache()
+    report["families"] = families_phase(torch, card)
 
     # -- phase 7: the kernels line -------------------------------------------
     # Slice 1's kernels: ms per fit of cl-100k-1d8-l5.  The retrieval

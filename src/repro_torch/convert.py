@@ -80,7 +80,9 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
 def tree_from_flat(flat: Mapping, prefix: str = "") -> dict:
     """Nest the entries of ``flat`` whose keys start with ``prefix``
     (``"param/layers/mixer/wq"`` -> ``tree["layers"]["mixer"]["wq"]``), as
-    a parameter tree saved flat (``np.savez``) is read back."""
+    a parameter tree saved flat (``np.savez``) is read back.  A node whose
+    keys are ``"0"`` .. ``"n-1"`` becomes a list (the reference's tuples
+    and lists, e.g. a hybrid's ``"layers/period/0/..."``)."""
     tree: dict = {}
     for key, value in flat.items():
         if not key.startswith(prefix):
@@ -90,7 +92,16 @@ def tree_from_flat(flat: Mapping, prefix: str = "") -> dict:
         for part in path:
             node = node.setdefault(part, {})
         node[leaf] = value
-    return tree
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        if node and set(node) == {str(i) for i in range(len(node))}:
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return listify(tree)
 
 
 def lm_params_from_reference(params: Mapping, cfg, device=None) -> dict:
@@ -100,11 +111,17 @@ def lm_params_from_reference(params: Mapping, cfg, device=None) -> dict:
     the card), bit for bit.
 
     The reference stacks a scanned stack's layers ``[L, ...]`` under
-    ``params["layers"]``; the port keeps one dict a layer, so the stack is
-    split (a list of per-layer dicts is taken as it is).  Both packages keep
-    every matrix ``[d_in, d_out]`` and apply it as ``x @ W``, so nothing is
-    transposed.  A tied head is the embedding's transpose in both and has no
-    ``head`` entry; an untied one must have it.
+    ``params["layers"]`` (an MoE layer's experts ``[L, E, D, F]``), and a
+    period-scanned hybrid's as ``{"period": (stack_j [n_per, ...] for each
+    pattern position j), "tail": [...]}``, where layer ``i * len(period) +
+    j`` is ``period[j][i]`` and the tail follows the periods.  The port
+    keeps one dict a layer, so the stacks are split in that order (a list
+    of per-layer dicts is taken as it is).  Every leaf must have the port's
+    shape and dtype (the router and the SSM and RG-LRU gates are f32 beside
+    bf16 weights).  Both packages keep every matrix ``[d_in, d_out]`` and
+    apply it as ``x @ W``, so nothing is transposed.  A tied head is the
+    embedding's transpose in both and has no ``head`` entry; an untied one
+    must have it.
     """
     from repro_torch.models.lm import abstract_params
 
@@ -122,10 +139,24 @@ def lm_params_from_reference(params: Mapping, cfg, device=None) -> dict:
             return {k: leaf_map(v, fn) for k, v in tree.items()}
         return fn(tree)
 
+    def unstack(stack, n):
+        return [leaf_map(stack, lambda a, i=i: np.asarray(a)[i])
+                for i in range(n)]
+
     layers = params["layers"]
-    if isinstance(layers, Mapping):               # stacked [L, ...]
-        layers = [leaf_map(layers, lambda a, i=i: np.asarray(a)[i])
-                  for i in range(cfg.num_layers)]
+    if isinstance(layers, Mapping) and set(layers) == {"period", "tail"}:
+        period, n_per, tail = cfg.period_info
+        if len(layers["period"]) != len(period) \
+                or len(layers["tail"]) != len(tail):
+            raise ValueError(f"period layout of {len(layers['period'])} "
+                             f"positions and a tail of "
+                             f"{len(layers['tail'])}, expected "
+                             f"{len(period)} and {len(tail)}")
+        by_pos = [unstack(stack, n_per) for stack in layers["period"]]
+        layers = [by_pos[j][i] for i in range(n_per)
+                  for j in range(len(period))] + list(layers["tail"])
+    elif isinstance(layers, Mapping):             # stacked [L, ...]
+        layers = unstack(layers, cfg.num_layers)
     if len(layers) != cfg.num_layers:
         raise ValueError(f"{len(layers)} layers, expected {cfg.num_layers}")
     tree = {k: v for k, v in params.items() if k != "layers"}

@@ -6,11 +6,16 @@ prefill and batched decode through ``BatchedServer``, slot churn as
 requests finish at different lengths, and throughput accounting.  Runs on
 the card unless ``--device cpu`` is given.  ``--reduced`` (the default, as
 in the reference) serves the small same-family config; ``--no-reduced``
-serves the published one.
+serves the published one.  ``--arch`` takes every config with the token
+frontend: dense, MoE, SSM and hybrid.  A period-scanned hybrid (the
+published ``recurrentgemma-2b``) is refused by ``BatchedServer`` as in the
+reference; ``serve.decode.generate`` serves it.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --no-reduced --requests 32 --slots 8 --max-len 512 --max-new 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
+      --device cpu
 """
 
 from __future__ import annotations

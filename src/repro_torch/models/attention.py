@@ -22,9 +22,19 @@ the function computed:
   one with positions -1 (masked like any invalid slot), where the reference
   halves the chunk until it divides S (a prime S would take chunks of 1).
 * ``attention_decode`` writes the new K/V column into the cache in place,
-  where the reference returns a new cache; ``rows`` limits the write to
-  those batch rows, so a continuous-batching server can run the whole batch
-  at one slot group's position without touching the other slots' caches.
+  where the reference returns a new cache.  With ``rows`` every row still
+  attends with its new column in place, as the reference's step computes
+  every row before its server keeps one slot's; afterwards the old column
+  is put back for the rows outside ``rows``.  So a continuous-batching
+  server runs the whole batch at one slot group's position without
+  touching the other slots' caches, and rows that are coupled (an MoE
+  layer's capacity) see what they see in the reference.
+
+A decode position past a cache that is not a ring raises
+``CachePositionError`` (an ``IndexError``) before anything is written.  A
+windowed cache is a ring only when it holds the whole window; a prefill
+shorter than the window keeps a shorter cache, and there the reference
+clamps its write to the last slot.
 """
 
 from __future__ import annotations
@@ -39,6 +49,29 @@ from repro_torch.models.layers import (apply_rope, rms_norm,
                                        truncated_normal_init)
 
 NEG_INF = -1e30
+
+
+class CachePositionError(IndexError):
+    """A decode position that the cache has no slot for: past the end of a
+    cache that is not a ring buffer, or negative."""
+
+
+def is_ring(cfg: ModelConfig, s_max: int) -> bool:
+    """A local-attention cache of ``s_max`` slots is a ring buffer (position
+    p in slot p % window) when it holds the whole window."""
+    return cfg.sliding_window is not None and cfg.sliding_window <= s_max
+
+
+def check_decode_position(cfg: ModelConfig, s_max: int,
+                          position: int) -> None:
+    """Raise ``CachePositionError`` unless a decode step at ``position`` has
+    a slot in a cache of ``s_max``."""
+    if position < 0 or (not is_ring(cfg, s_max) and position >= s_max):
+        window = ("" if cfg.sliding_window is None else
+                  f" (window {cfg.sliding_window}: not a ring buffer, whose "
+                  f"cache must hold the whole window)")
+        raise CachePositionError(f"decode position {position} outside a "
+                                 f"cache of {s_max}{window}")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -285,15 +318,22 @@ def row_mask(rows, batch: int, device) -> Optional[torch.Tensor]:
     return mask.to(device)
 
 
-def _write_column(buf: torch.Tensor, slot: torch.Tensor, new: torch.Tensor,
-                  mask: Optional[torch.Tensor]) -> None:
-    """``buf[:, slot] = new`` in place (``new`` [B, 1, ...]), for the rows
-    of ``mask`` only when given."""
-    new = new.to(buf.dtype)
-    if mask is not None:
-        old = buf.index_select(1, slot)
-        new = torch.where(mask.view(-1, *([1] * (new.dim() - 1))), new, old)
-    buf.index_copy_(1, slot, new)
+def _write_column(buf: torch.Tensor, slot: torch.Tensor,
+                  new: torch.Tensor) -> torch.Tensor:
+    """``buf[:, slot] = new`` in place (``new`` [B, 1, ...]); returns the
+    column it overwrote."""
+    old = buf.index_select(1, slot)
+    buf.index_copy_(1, slot, new.to(buf.dtype))
+    return old
+
+
+def _keep_rows(buf: torch.Tensor, slot: torch.Tensor, old: torch.Tensor,
+               mask: torch.Tensor) -> None:
+    """Put column ``slot`` of ``buf`` back to ``old`` for the rows outside
+    the bool [B] ``mask``."""
+    cur = buf.index_select(1, slot)
+    keep = mask.view(-1, *([1] * (cur.dim() - 1)))
+    buf.index_copy_(1, slot, torch.where(keep, cur, old))
 
 
 def attention_decode(params, x_t, cache, position, cfg: ModelConfig, *,
@@ -302,9 +342,11 @@ def attention_decode(params, x_t, cache, position, cfg: ModelConfig, *,
     or ``init_cache``, written in place at column ``position`` (the ring
     slot ``position % window`` for local attention), for the batch rows
     ``rows`` only when given (indices or a bool [B] mask).  ``position`` is
-    an int or a one-element int64 tensor on the device (then nothing here
-    reads a device value on the host, so the step can be captured in a
-    CUDA graph; the caller keeps it inside the cache).  Scores and values
+    an int (checked: ``CachePositionError``) or a one-element int64 tensor
+    on the device (then nothing here reads a device value on the host, so
+    the step can be captured in a CUDA graph; the caller keeps it inside
+    the cache).  With ``rows`` every row attends with its new column, and
+    the rows outside keep their old column afterwards.  Scores and values
     are computed in f32 over the whole cache.  Returns (y [B, 1, D],
     cache).
     """
@@ -313,12 +355,10 @@ def attention_decode(params, x_t, cache, position, cfg: ModelConfig, *,
     g = h // kvh
     k, v, pos_buf = cache["k"], cache["v"], cache["pos"]
     s_max = k.shape[1]
-    ring = cfg.sliding_window is not None and cfg.sliding_window <= s_max
+    ring = is_ring(cfg, s_max)
     if not isinstance(position, torch.Tensor):
         position = int(position)
-        if not ring and not 0 <= position < s_max:
-            raise IndexError(f"decode position {position} outside a cache "
-                             f"of {s_max}")
+        check_decode_position(cfg, s_max, position)
         position = torch.full((1,), position, dtype=torch.int64,
                               device=x_t.device)
     pos = position.view(1, 1).expand(b, 1)
@@ -326,9 +366,8 @@ def attention_decode(params, x_t, cache, position, cfg: ModelConfig, *,
                                    rope)
     slot = position % cfg.sliding_window if ring else position
     mask_rows = row_mask(rows, b, x_t.device)
-    _write_column(k, slot, k_new, mask_rows)
-    _write_column(v, slot, v_new, mask_rows)
-    _write_column(pos_buf, slot, pos, mask_rows)
+    olds = [_write_column(buf, slot, new) for buf, new in
+            ((k, k_new), (v, v_new), (pos_buf, pos))]
 
     qg = q.reshape(b, kvh, g, hd).to(torch.float32)
     logits = torch.matmul(qg, _heads_major_f32(k).transpose(-1, -2))
@@ -342,6 +381,9 @@ def attention_decode(params, x_t, cache, position, cfg: ModelConfig, *,
     out = torch.matmul(p, _heads_major_f32(v))           # [B,KV,G,hd]
     out = out.reshape(b, 1, h * hd).to(x_t.dtype)
     y = out @ params["wo"]
+    if mask_rows is not None:
+        for buf, old in zip((k, v, pos_buf), olds):
+            _keep_rows(buf, slot, old, mask_rows)
     return y, cache
 
 
@@ -360,5 +402,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     }
 
 
-__all__ = ["NEG_INF", "torch_dtype", "init_attention", "attention_forward",
+__all__ = ["NEG_INF", "CachePositionError", "is_ring",
+           "check_decode_position", "torch_dtype", "init_attention", "attention_forward",
            "row_mask", "attention_decode", "init_cache"]

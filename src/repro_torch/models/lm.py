@@ -1,18 +1,28 @@
 """The LM backbone: init / forward / prefill / decode (port of
-``repro/models/lm.py``) for stacks where every layer is attention and there
-are no experts (``family == "dense"``, ``frontend == "none"``).
+``repro/models/lm.py``) for the families with the token frontend: dense and
+MoE decoders, the attention-free SSM stack (``family == "ssm"``) and the
+RG-LRU / local-attention hybrid (``"hybrid"``).
 
 Structure per layer (pre-norm residual):
 
-  x += attn(rms(x));  x += ffn(rms(x))
+  attn / rec:  x += mixer(rms(x));  x += ffn(rms(x))
+  ssm:         x += mixer(rms(x))                 (Mamba-style, no FFN)
 
-Parameters are a dict of tensors with ``params["layers"]`` a list of one
-dict per layer (the reference stacks them ``[L, ...]`` for ``lax.scan``;
-``repro_torch.convert.lm_params_from_reference`` unstacks them).  Decode
-caches are stacked, ``{"k", "v": [L, B, S, KV, hd], "pos": [L, B, S]}``,
-allocated once and written in place by ``decode_step``.
+with the FFN an MoE layer when ``cfg.moe`` is set.  Parameters are a dict
+of tensors with ``params["layers"]`` a list of one dict per layer (the
+reference stacks homogeneous stacks ``[L, ...]`` for ``lax.scan`` and the
+period-scanned hybrid by pattern position;
+``repro_torch.convert.lm_params_from_reference`` unstacks both).  Decode
+caches are allocated once and written in place by ``decode_step``,
+stacked by kind:
 
-Other families raise ``NotImplementedError`` naming their ROADMAP.md item.
+  attention stacks (dense, moe)  {"k", "v": [L, B, S, KV, hd], "pos": [L, B, S]}
+  ssm                            {"h": [L, B, H, P, N] f32, "conv": [L, B, K-1, C]}
+  hybrid                         a list of one cache a layer (its layers differ)
+
+``forward`` returns the MoE layers' aux losses summed over the layers, as
+the reference's does.  The ``vlm`` and ``audio`` families raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -23,6 +33,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import torch_dtype
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.frontends import check_frontend, embed_inputs
@@ -30,59 +43,64 @@ from repro_torch.models.layers import (embed_init, rms_norm, rope_tables,
                                        truncated_normal_init)
 from repro_torch.models.mlp import init_mlp, mlp_forward
 
+PORTED = ("dense", "moe", "ssm", "hybrid")
 # families not ported yet, by their ROADMAP.md section 1 item
-_LATER = {"moe": "8c", "ssm": "8d", "hybrid": "8d", "vlm": "8e",
-          "audio": "8e"}
+_LATER = {"vlm": "8e", "audio": "8e"}
+AUX_KEYS = ("load_balance_loss", "router_z_loss", "drop_fraction")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a dense decoder with
-    the token frontend, the one path ported so far."""
+    """Raise ``NotImplementedError`` unless ``cfg`` is a family ported so
+    far, with the token frontend."""
     item = _LATER.get(cfg.family)
-    if item is None and cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: unknown family "
-                                  f"{cfg.family!r}")
-    if item is None and (cfg.moe or cfg.ssm or cfg.rglru):
-        item = "8c" if cfg.moe else "8d"
     if item is not None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
             f"(ROADMAP.md section 1, item {item})")
+    if cfg.family not in PORTED:
+        raise NotImplementedError(f"{cfg.name}: unknown family "
+                                  f"{cfg.family!r}")
     check_frontend(cfg)
+
+
+def stacked(cfg: ModelConfig) -> bool:
+    """Whether the caches are stacked [L, ...] (every layer one kind, as the
+    reference's scanned stacks), not one a layer."""
+    return cfg.scan_layers and len(set(cfg.layer_pattern)) == 1
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def _init_layer(gen, cfg: ModelConfig, device) -> dict:
+def _init_layer(gen, cfg: ModelConfig, layer_type: str, device) -> dict:
     dt = torch_dtype(cfg.param_dtype)
-    return {"ln1": torch.zeros((cfg.d_model,), dtype=dt, device=device),
-            "mixer": attn_mod.init_attention(gen, cfg, device),
-            "ln2": torch.zeros((cfg.d_model,), dtype=dt, device=device),
-            "ffn": init_mlp(gen, cfg.d_model, cfg.d_ff, dt, device)}
+    p: dict = {"ln1": torch.zeros((cfg.d_model,), dtype=dt, device=device)}
+    if layer_type == "attn":
+        p["mixer"] = attn_mod.init_attention(gen, cfg, device)
+    elif layer_type == "rec":
+        p["mixer"] = rglru_mod.init_rglru(gen, cfg, device)
+    elif layer_type == "ssm":
+        p["mixer"] = ssm_mod.init_ssm(gen, cfg, device)
+    else:
+        raise ValueError(layer_type)
+    if layer_type != "ssm":
+        p["ln2"] = torch.zeros((cfg.d_model,), dtype=dt, device=device)
+        if cfg.moe is not None:
+            p["ffn"] = moe_mod.init_moe(gen, cfg.d_model, cfg.moe, dt,
+                                        device)
+        elif cfg.d_ff:
+            p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dt, device)
+    return p
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
-                generator: Optional[torch.Generator] = None) -> dict:
-    """Random weights on ``device`` (``None``: the card), drawn from
-    ``generator`` (default: a generator on the device seeded with
-    ``seed``).  The embedding is [padded_vocab, D]; an untied head
-    [D, padded_vocab]."""
-    check_supported(cfg)
-    device = resolve_device(device)
-    if device.type == "meta":
-        return abstract_params(cfg)
-    gen = generator
-    if gen is None:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(int(seed))
+def _build(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     dt = torch_dtype(cfg.param_dtype)
     params: dict = {
         "embed": embed_init(gen, (cfg.padded_vocab, cfg.d_model), dt,
                             device)}
-    params["layers"] = [_init_layer(gen, cfg, device)
-                        for _ in range(cfg.num_layers)]
+    params["layers"] = [_init_layer(gen, cfg, t, device)
+                        for t in cfg.layer_pattern]
     params["final_norm"] = torch.zeros((cfg.d_model,), dtype=dt,
                                        device=device)
     if not cfg.tie_embeddings:
@@ -91,53 +109,52 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
     return params
 
 
+def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
+                generator: Optional[torch.Generator] = None) -> dict:
+    """Random weights on ``device`` (``None``: the card), drawn from
+    ``generator`` (default: a generator on the device seeded with
+    ``seed``).  The embedding is [padded_vocab, D]; an untied head
+    [D, padded_vocab]; the router, the SSM's ``a_log`` / ``dt_bias`` /
+    ``d_skip`` and the RG-LRU's gates f32, as in the reference."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    if device.type == "meta":
+        return abstract_params(cfg)
+    gen = generator
+    if gen is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
+    return _build(cfg, gen, device)
+
+
 def abstract_params(cfg: ModelConfig) -> dict:
     """The parameter tree's shapes and dtypes on the ``meta`` device (no
     allocation)."""
     check_supported(cfg)
-    d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                    cfg.resolved_head_dim)
-    dt = torch_dtype(cfg.param_dtype)
-
-    def t(*shape):
-        return torch.empty(shape, dtype=dt, device="meta")
-
-    mixer = {"wq": t(d, h * hd), "wk": t(d, kv * hd), "wv": t(d, kv * hd),
-             "wo": t(h * hd, d)}
-    if cfg.attn_bias:
-        mixer.update(bq=t(h * hd), bk=t(kv * hd), bv=t(kv * hd))
-    if cfg.qk_norm:
-        mixer.update(q_norm=t(hd), k_norm=t(hd))
-
-    def layer():
-        return {"ln1": t(d), "mixer": {n: t(*a.shape)
-                                       for n, a in mixer.items()},
-                "ln2": t(d), "ffn": {"w_gate": t(d, cfg.d_ff),
-                                     "w_up": t(d, cfg.d_ff),
-                                     "w_down": t(cfg.d_ff, d)}}
-
-    params = {"embed": t(cfg.padded_vocab, d),
-              "layers": [layer() for _ in range(cfg.num_layers)],
-              "final_norm": t(d)}
-    if not cfg.tie_embeddings:
-        params["head"] = t(d, cfg.padded_vocab)
-    return params
+    return _build(cfg, torch.Generator(), torch.device("meta"))
 
 
 def tree_size_from_param_count(cfg: ModelConfig) -> int:
     """The element count of the parameter tree, from the analytic
     ``cfg.param_count()``: plus the vocabulary padding rows of the embedding
-    (and of an untied head), the q/k norm scales and the qkv biases, which
-    the analytic count leaves out, less the one d_model vector a layer that
-    it adds beyond the two norm scales a layer has."""
-    d, hd, n = cfg.d_model, cfg.resolved_head_dim, cfg.num_layers
+    (and of an untied head), the q/k norm scales and the qkv biases of the
+    attention layers, the SSM's ``dt_bias`` and the RG-LRU's ``lam``, which
+    the analytic count leaves out, less the one d_model vector an attention
+    layer that it adds beyond the two norm scales that layer has."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    pattern = cfg.layer_pattern
+    n_attn, n_ssm, n_rec = (pattern.count(t) for t in ("attn", "ssm", "rec"))
     heads = 1 if cfg.tie_embeddings else 2
     size = cfg.param_count() + heads * (cfg.padded_vocab - cfg.vocab_size) * d
     if cfg.qk_norm:
-        size += n * 2 * hd
+        size += n_attn * 2 * hd
     if cfg.attn_bias:
-        size += n * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd
-    return size - n * d
+        size += n_attn * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd
+    if n_ssm:
+        size += n_ssm * ssm_mod._dims(cfg)[2]
+    if n_rec:
+        size += n_rec * rglru_mod._width(cfg)
+    return size - n_attn * d
 
 
 def param_tensors(params: dict):
@@ -156,24 +173,56 @@ def param_tensors(params: dict):
 # one block
 # ---------------------------------------------------------------------------
 
-def _apply_block(layer_params, x, positions, cfg: ModelConfig, *, mode: str,
-                 cache=None, attn_impl: str = "auto", chunk: int = 512,
-                 decode_pos=None, cache_len=None, rows=None, rope=None):
-    """Returns (x, new_cache)."""
+def _apply_block(layer_params, x, positions, cfg: ModelConfig,
+                 layer_type: str, *, mode: str, cache=None,
+                 attn_impl: str = "auto", chunk: int = 512, decode_pos=None,
+                 cache_len=None, rows=None, rope=None):
+    """Returns (x, new_cache, aux)."""
+    aux = {}
     h = rms_norm(x, layer_params["ln1"], cfg.norm_eps)
-    if mode == "decode":
-        y, new_cache = attn_mod.attention_decode(
-            layer_params["mixer"], h, cache, decode_pos, cfg, rows=rows,
-            rope=rope)
+    prefill = mode == "prefill"
+    if layer_type == "attn":
+        if mode == "decode":
+            y, new_cache = attn_mod.attention_decode(
+                layer_params["mixer"], h, cache, decode_pos, cfg, rows=rows,
+                rope=rope)
+        else:
+            y, new_cache = attn_mod.attention_forward(
+                layer_params["mixer"], h, positions, cfg, impl=attn_impl,
+                chunk=chunk, return_cache=prefill, cache_len=cache_len,
+                rope=rope)
+    elif layer_type == "rec":
+        if mode == "decode":
+            y, new_cache = rglru_mod.rglru_decode(
+                layer_params["mixer"], h, cache, cfg, rows=rows)
+        else:
+            y, new_cache = rglru_mod.rglru_forward(
+                layer_params["mixer"], h, cfg, return_state=prefill)
+    elif layer_type == "ssm":
+        if mode == "decode":
+            y, new_cache = ssm_mod.ssm_decode(
+                layer_params["mixer"], h, cache, cfg, rows=rows)
+        else:
+            y, new_cache = ssm_mod.ssm_forward(
+                layer_params["mixer"], h, cfg, return_state=prefill)
     else:
-        y, new_cache = attn_mod.attention_forward(
-            layer_params["mixer"], h, positions, cfg, impl=attn_impl,
-            chunk=chunk, return_cache=(mode == "prefill"),
-            cache_len=cache_len, rope=rope)
+        raise ValueError(layer_type)
     x = x + y
-    h = rms_norm(x, layer_params["ln2"], cfg.norm_eps)
-    x = x + mlp_forward(layer_params["ffn"], h)
-    return x, new_cache
+    if layer_type != "ssm" and "ffn" in layer_params:
+        h = rms_norm(x, layer_params["ln2"], cfg.norm_eps)
+        if cfg.moe is not None:
+            y, aux = moe_mod.moe_forward(layer_params["ffn"], h, cfg.moe)
+        else:
+            y = mlp_forward(layer_params["ffn"], h)
+        x = x + y
+    return x, new_cache, aux
+
+
+def _zero_aux(cfg: ModelConfig, device) -> dict:
+    if cfg.moe is None:
+        return {}
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in AUX_KEYS}
 
 
 # ---------------------------------------------------------------------------
@@ -186,27 +235,31 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, *,
     """-> (logits [B, S, V_pad] f32, caches|None, aux dict).
 
     ``batch["tokens"]`` [B, S] ints.  ``cache_len``: KV-cache capacity when
-    mode == 'prefill' (defaults to the prefill length; pass the decode
-    horizon to pre-allocate room).  ``aux`` is empty: a dense stack has no
-    router losses."""
+    mode == 'prefill' (defaults to the prefill length, or the window for
+    local attention; pass the decode horizon to pre-allocate room).
+    ``aux``: the MoE layers' ``load_balance_loss``, ``router_z_loss`` and
+    ``drop_fraction``, each summed over the layers (empty without MoE)."""
     assert mode in ("train", "prefill")
     check_supported(cfg)
     x, positions, _ = embed_inputs(params, batch, cfg, params["embed"])
     rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta,
                        cfg.rope)
+    aux_total = _zero_aux(cfg, x.device)
     caches = []
-    for lp in params["layers"]:
-        x, new_cache = _apply_block(lp, x, positions, cfg, mode=mode,
-                                    attn_impl=attn_impl, chunk=chunk,
-                                    cache_len=cache_len, rope=rope)
+    for lp, layer_type in zip(params["layers"], cfg.layer_pattern):
+        x, new_cache, aux = _apply_block(
+            lp, x, positions, cfg, layer_type, mode=mode,
+            attn_impl=attn_impl, chunk=chunk, cache_len=cache_len, rope=rope)
         caches.append(new_cache)
-    if mode == "prefill":
-        caches = {name: torch.stack([c[name] for c in caches])
-                  for name in ("k", "v", "pos")}
-    else:
+        for k in aux_total:
+            aux_total[k] = aux_total[k] + aux.get(k, 0.0)
+    if mode != "prefill":
         caches = None
+    elif stacked(cfg):
+        caches = {name: torch.stack([c[name] for c in caches])
+                  for name in caches[0]}
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _head(params, x, cfg), caches, {}
+    return _head(params, x, cfg), caches, aux_total
 
 
 def _head(params, x, cfg: ModelConfig):
@@ -220,57 +273,101 @@ def _head(params, x, cfg: ModelConfig):
 # decode
 # ---------------------------------------------------------------------------
 
+def _one_cache(cfg: ModelConfig, layer_type: str, batch: int, max_len: int,
+               dtype, device) -> dict:
+    if layer_type == "attn":
+        return attn_mod.init_cache(cfg, batch, max_len, dtype, device)
+    if layer_type == "ssm":
+        return ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
+    return rglru_mod.init_rglru_cache(cfg, batch, dtype, device)
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
-                device=None) -> dict:
-    """Decode caches for every layer, stacked: k/v [L, B, max_len, KV, hd]
-    in the compute dtype (zeros), pos [L, B, max_len] int32 (-1: empty)."""
+                device=None):
+    """Empty decode caches for every layer (see the module docstring for
+    the layout): K/V in the compute dtype (zeros) with positions -1 (empty)
+    over ``min(max_len, window)`` slots, the SSM and RG-LRU states f32 and
+    their conv tails in the compute dtype (zeros)."""
     check_supported(cfg)
-    one = attn_mod.init_cache(cfg, batch, max_len, torch.float32,
-                              device="meta")
     device = resolve_device(device)
     dt = torch_dtype(cfg.compute_dtype)
-    lead = (cfg.num_layers,)
-    return {"k": torch.zeros(lead + tuple(one["k"].shape), dtype=dt,
-                             device=device),
-            "v": torch.zeros(lead + tuple(one["v"].shape), dtype=dt,
-                             device=device),
-            "pos": torch.full(lead + tuple(one["pos"].shape), -1,
-                              dtype=torch.int32, device=device)}
+    pattern = cfg.layer_pattern
+    if stacked(cfg):
+        one = _one_cache(cfg, pattern[0], batch, max_len, dt, "meta")
+        return {name: torch.full((cfg.num_layers,) + tuple(a.shape),
+                                 -1 if name == "pos" else 0, dtype=a.dtype,
+                                 device=device)
+                for name, a in one.items()}
+    return [_one_cache(cfg, t, batch, max_len, dt, device) for t in pattern]
 
 
-def decode_step(params: dict, tokens_t: torch.Tensor, caches: dict,
-                position, cfg: ModelConfig, *, rows=None):
+def layer_cache(caches, i: int) -> dict:
+    """Layer ``i``'s cache: views into a stacked tree, or its list entry."""
+    if isinstance(caches, dict):
+        return {name: leaf[i] for name, leaf in caches.items()}
+    return caches[i]
+
+
+def cache_leaves(caches):
+    """(name, tensor, batch dim) of every leaf of a cache tree."""
+    if isinstance(caches, dict):
+        return [(name, leaf, 1) for name, leaf in caches.items()]
+    return [(name, leaf, 0) for c in caches for name, leaf in c.items()]
+
+
+def attention_cache_len(caches) -> Optional[int]:
+    """The slots of the attention caches (None when no layer attends)."""
+    if isinstance(caches, dict):
+        return caches["k"].shape[2] if "k" in caches else None
+    lens = {c["k"].shape[1] for c in caches if "k" in c}
+    if len(lens) > 1:
+        raise ValueError(f"attention caches of {sorted(lens)} slots")
+    return lens.pop() if lens else None
+
+
+def check_position(cfg: ModelConfig, caches, position: int) -> None:
+    """Raise ``attention.CachePositionError`` unless every attention cache
+    has a slot for a decode step at ``position``."""
+    s_max = attention_cache_len(caches)
+    if s_max is not None:
+        attn_mod.check_decode_position(cfg, s_max, position)
+
+
+def decode_step(params: dict, tokens_t: torch.Tensor, caches, position,
+                cfg: ModelConfig, *, rows=None):
     """One new token for every sequence.
 
     tokens_t [B, 1] ints; position: the current absolute position, an int
+    (checked against the attention caches first: ``CachePositionError``)
     or a one-element int64 tensor on the device.  The caches are written in
-    place (only batch rows ``rows`` when given: indices or a bool [B]
-    mask).  With tensor ``position`` and ``rows`` nothing reads a device
-    value on the host, so the step can be captured in a CUDA graph.
+    place; with ``rows`` (indices or a bool [B] mask) every row is computed
+    as the reference computes it (its new K/V column in place, its new
+    state) but only those rows' caches keep what the step wrote.  With
+    tensor ``position`` and ``rows`` nothing reads a device value on the
+    host, so the step can be captured in a CUDA graph.
     -> (logits [B, 1, V_pad] f32, caches)
     """
     check_supported(cfg)
     b = tokens_t.shape[0]
     dev = tokens_t.device
     if not isinstance(position, torch.Tensor):
-        s_max = caches["k"].shape[2]
-        if cfg.sliding_window is None and not 0 <= int(position) < s_max:
-            raise IndexError(f"decode position {position} outside a cache "
-                             f"of {s_max}")
+        check_position(cfg, caches, int(position))
         position = torch.full((1,), int(position), dtype=torch.int64,
                               device=dev)
     rope = rope_tables(position.view(1, 1).expand(b, 1),
                        cfg.resolved_head_dim, cfg.rope_theta, cfg.rope)
     rows = attn_mod.row_mask(rows, b, dev)
     x = params["embed"][tokens_t.long()].to(torch_dtype(cfg.compute_dtype))
-    for i, lp in enumerate(params["layers"]):
-        layer_cache = {name: caches[name][i] for name in ("k", "v", "pos")}
-        x, _ = _apply_block(lp, x, None, cfg, mode="decode",
-                            cache=layer_cache, decode_pos=position, rows=rows,
-                            rope=rope)
+    for i, (lp, layer_type) in enumerate(zip(params["layers"],
+                                             cfg.layer_pattern)):
+        x, _, _ = _apply_block(lp, x, None, cfg, layer_type, mode="decode",
+                               cache=layer_cache(caches, i),
+                               decode_pos=position, rows=rows, rope=rope)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _head(params, x, cfg), caches
 
 
-__all__ = ["check_supported", "init_params", "abstract_params",
-           "tree_size_from_param_count", "param_tensors", "forward", "init_caches", "decode_step"]
+__all__ = ["PORTED", "AUX_KEYS", "check_supported", "stacked", "init_params",
+           "abstract_params", "tree_size_from_param_count", "param_tensors",
+           "forward", "init_caches", "layer_cache", "cache_leaves",
+           "attention_cache_len", "check_position", "decode_step"]

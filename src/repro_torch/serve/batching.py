@@ -11,7 +11,12 @@ host; the device state is the batched cache, allocated once at
 The reference's decode step returns new caches and the server merges one
 slot's rows back; here the step writes the cache in place, for the calling
 group's slots only (``rows``), so a call at one group's position never
-touches another slot's cache.  Admission resets the slot's own slice.
+touches another slot's cache.  Every row is still computed as the
+reference computes it (its new K/V column in place, its new recurrent
+state), which matters where the rows of a call are coupled: an MoE layer's
+capacity is shared by every row of the call.  Admission resets every leaf
+of the slot's own slice.  Dense, MoE, SSM and hybrid stacks are served; a
+period-scanned hybrid is refused, as in the reference.
 """
 
 from __future__ import annotations
@@ -49,6 +54,11 @@ class BatchedServer:
                  max_len: int, eos_id: Optional[int] = None,
                  temperature: float = 0.0, seed: int = 0, device=None):
         lm.check_supported(cfg)
+        if cfg.use_period_scan:
+            raise NotImplementedError(
+                "BatchedServer does not serve period-scanned hybrids (as "
+                "the reference's slot merge does not); use "
+                "serve.decode.generate for them")
         self.params = params
         self.cfg = cfg
         self.b = batch_slots
@@ -88,10 +98,10 @@ class BatchedServer:
                 self._prefill_slot(slot, req)
 
     def _reset_slot(self, slot: int):
-        """Empty the slot's own slice of every layer's cache."""
-        self.caches["k"][:, slot] = 0
-        self.caches["v"][:, slot] = 0
-        self.caches["pos"][:, slot] = -1
+        """Empty the slot's own slice of every leaf of every layer's cache
+        (positions -1, everything else 0), as ``init_caches`` makes it."""
+        for name, leaf, batch_dim in lm.cache_leaves(self.caches):
+            leaf.select(batch_dim, slot).fill_(-1 if name == "pos" else 0)
 
     def _tokens(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)

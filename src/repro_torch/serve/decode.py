@@ -4,7 +4,8 @@
 (params, caches, tokens, pos) -> (next_token_logits, caches); sampling
 (greedy / temperature) happens on top, so one step serves both.  The
 reference's ``lax.scan`` over decode steps is a Python loop here, and the
-caches are written in place.
+caches are written in place.  Every family with the token frontend
+serves through these (dense, MoE, SSM, hybrid).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 
@@ -37,23 +39,35 @@ def make_serve_step(cfg: ModelConfig):
 
 
 class GraphedDecodeStep:
-    """``lm.decode_step`` over fixed caches, captured once as a CUDA graph
-    and replayed: the port's counterpart of the reference server's
-    ``jax.jit`` of the step, which the host would otherwise pay for in
-    thousands of kernel launches a token.
+    """``lm.decode_step`` over fixed caches (any family's cache tree),
+    captured once as a CUDA graph and replayed: the port's counterpart of
+    the reference server's ``jax.jit`` of the step, which the host would
+    otherwise pay for in thousands of kernel launches a token.
 
     The graph reads three static buffers: the tokens [B, 1], the position
     (one int64) and the row mask [B] of the slots whose cache it writes.  A
-    call copies them in, replays and returns the graph's own logits
-    [B, 1, V_pad], overwritten by the next call.  Capture runs the step on
-    a side stream first with every row masked (the cache is written with
-    its own values), as CUDA graphs need.
+    call checks the position on the host, copies them in, replays and
+    returns the graph's own logits [B, 1, V_pad], overwritten by the next
+    call.  Capture runs the step on a side stream first with every row
+    masked (the caches keep their own values), as CUDA graphs need.
+
+    A windowed cache that is not a ring (shorter than the window, as a
+    prefill shorter than the window leaves it) is refused with
+    ``CachePositionError`` before anything is captured: inside the graph no
+    host code sees the index the step writes.
     """
 
-    def __init__(self, params: dict, caches: dict, cfg: ModelConfig):
+    def __init__(self, params: dict, caches, cfg: ModelConfig):
         self.params, self.caches, self.cfg = params, caches, cfg
-        self.batch, self.max_len = caches["k"].shape[1], caches["k"].shape[2]
-        dev = caches["k"].device
+        s_max = lm.attention_cache_len(caches)
+        if s_max is not None and cfg.sliding_window is not None \
+                and not attn_mod.is_ring(cfg, s_max):
+            raise attn_mod.CachePositionError(
+                f"{cfg.name}: a cache of {s_max} slots under a window of "
+                f"{cfg.sliding_window} is not a ring buffer; a graphed step "
+                f"could write past it unchecked")
+        _, leaf, batch_dim = lm.cache_leaves(caches)[0]
+        self.batch, dev = leaf.shape[batch_dim], leaf.device
         self.tokens = torch.zeros((self.batch, 1), dtype=torch.int32,
                                   device=dev)
         self.position = torch.zeros((1,), dtype=torch.int64, device=dev)
@@ -80,10 +94,7 @@ class GraphedDecodeStep:
     def __call__(self, tokens_t: torch.Tensor, position: int,
                  rows=None) -> torch.Tensor:
         position = int(position)
-        if self.cfg.sliding_window is None \
-                and not 0 <= position < self.max_len:
-            raise IndexError(f"decode position {position} outside a cache "
-                             f"of {self.max_len}")
+        lm.check_position(self.cfg, self.caches, position)
         if self.graph is None:
             self._capture()
         mask = torch.ones(self.batch, dtype=torch.bool)

@@ -35,8 +35,16 @@ from repro_torch.models import layers
 from repro_torch.models import lm
 
 DENSE = ("qwen3-0.6b", "chatglm3-6b", "granite-3-8b", "command-r-35b")
-UNPORTED = ("kimi-k2-1t-a32b", "deepseek-moe-16b", "mamba2-2.7b",
-            "recurrentgemma-2b", "qwen2-vl-72b", "hubert-xlarge")
+# the MoE, SSM and hybrid configs (their tests: test_torch_moe.py,
+# test_torch_ssm.py)
+OTHER = ("deepseek-moe-16b", "kimi-k2-1t-a32b", "mamba2-2.7b",
+         "recurrentgemma-2b")
+UNPORTED = ("qwen2-vl-72b", "hubert-xlarge")
+# param_count() of the published configs the card serves
+PARAM_COUNTS = {"qwen3-0.6b": 596_071_424,
+                "deepseek-moe-16b": 16_879_626_240,
+                "mamba2-2.7b": 2_830_946_816,
+                "recurrentgemma-2b": 2_658_664_960}
 FIXTURE = Path(__file__).parent / "torch_fixtures" / "lm_qwen3_reduced.npz"
 FIXTURE_PREFILL = 9
 
@@ -92,45 +100,63 @@ def test_param_count_matches_reference(name):
     assert cfg.reduced().param_count() == jcfg.reduced().param_count()
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + OTHER)
 def test_parameter_tree_shapes_at_full_size(name):
     """The port's tree (meta device, nothing allocated) has the reference's
-    leaves, unstacked; its element count is ``param_count()`` plus the
-    vocabulary padding rows and the q/k norm scales, less the one d_model
-    vector a layer that the analytic count adds beyond the two norms."""
+    leaves, unstacked (a scanned stack's [L, ...], a period-scanned
+    hybrid's pattern positions and tail); its element count is
+    ``param_count()`` plus the vocabulary padding rows, the q/k norm
+    scales, the qkv biases, the SSM's ``dt_bias`` and the RG-LRU's ``lam``,
+    less the one d_model vector an attention layer that the analytic count
+    adds beyond the two norms."""
     cfg, jcfg = get_config(name), j_get_config(name)
     want = jax.eval_shape(lambda: jlm.init_params(jax.random.PRNGKey(0),
                                                   jcfg))
     got = lm.abstract_params(cfg)
     assert all(p.device.type == "meta" for p in lm.param_tensors(got))
     assert len(got["layers"]) == cfg.num_layers
-    flat_want = {"/".join(str(getattr(k, "key", k)) for k in path): leaf
+    flat_want = {"/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                          for k in path): leaf
                  for path, leaf in jax.tree_util.tree_leaves_with_path(want)}
+    info = cfg.period_info
     for key, leaf in flat_want.items():
         parts = key.split("/")
         node = got
-        if parts[0] == "layers":
-            node = got["layers"][0]
-            parts = parts[1:]
+        shape = leaf.shape
+        if parts[:2] == ["layers", "period"]:      # [n_per, ...] by position
+            node, parts = got["layers"][int(parts[2])], parts[3:]
             shape = leaf.shape[1:]
-        else:
-            shape = leaf.shape
+        elif parts[:2] == ["layers", "tail"]:
+            node = got["layers"][info[1] * len(info[0]) + int(parts[2])]
+            parts = parts[3:]
+        elif parts[0] == "layers":                 # [L, ...]
+            node, parts = got["layers"][0], parts[1:]
+            shape = leaf.shape[1:]
         for p in parts:
             node = node[p]
         assert tuple(node.shape) == tuple(shape), key
         assert str(node.dtype).replace("torch.", "") == str(leaf.dtype), key
+    copies = {"period": info[1] if info else 0, "tail": 1}
+    assert len(list(lm.param_tensors(got))) == sum(
+        (copies[k.split("/")[1]] if k.split("/")[1] in copies
+         else cfg.num_layers) if k.startswith("layers/") else 1
+        for k in flat_want)
     n = sum(p.numel() for p in lm.param_tensors(got))
-    d, hd, layers_ = cfg.d_model, cfg.resolved_head_dim, cfg.num_layers
+    d, hd, pattern = cfg.d_model, cfg.resolved_head_dim, cfg.layer_pattern
+    n_attn, n_ssm, n_rec = (pattern.count(k) for k in ("attn", "ssm", "rec"))
     heads = 1 if cfg.tie_embeddings else 2
     expect = (cfg.param_count()
               + heads * (cfg.padded_vocab - cfg.vocab_size) * d
-              + layers_ * (2 * hd if cfg.qk_norm else 0)
-              + layers_ * ((cfg.num_heads + 2 * cfg.num_kv_heads) * hd
-                           if cfg.attn_bias else 0)
-              - layers_ * d)
+              + n_attn * (2 * hd if cfg.qk_norm else 0)
+              + n_attn * ((cfg.num_heads + 2 * cfg.num_kv_heads) * hd
+                          if cfg.attn_bias else 0)
+              + n_ssm * (cfg.ssm.expand * d // cfg.ssm.head_dim
+                         if cfg.ssm else 0)
+              + n_rec * ((cfg.rglru.lru_width or d) if cfg.rglru else 0)
+              - n_attn * d)
     assert n == expect == lm.tree_size_from_param_count(cfg)
-    if name == "qwen3-0.6b":
-        assert cfg.param_count() == 596_071_424
+    if name in PARAM_COUNTS:
+        assert cfg.param_count() == PARAM_COUNTS[name]
 
 
 @pytest.mark.parametrize("name", UNPORTED)
@@ -143,6 +169,46 @@ def test_unported_families_raise(name):
                    cfg)
     with pytest.raises(NotImplementedError):
         lm.init_caches(cfg, 1, 8, device="cpu")
+
+
+@pytest.mark.parametrize("name,window,prefill", [
+    ("qwen3-0.6b", 5, 3), ("qwen3-0.6b", 8, 5), ("recurrentgemma-2b", 8, 5)])
+def test_decode_past_a_short_windowed_prefill_raises(name, window, prefill):
+    """A prefill shorter than the window keeps min(window, S) slots, which
+    is not a ring buffer: a decode step past it raises the port's
+    ``CachePositionError`` (an ``IndexError``) before any layer writes,
+    and a graphed step refuses such a cache before it captures.  With the
+    window's slots (a ring) the same step runs and equals the port's own
+    forward.  (The reference clamps its write here instead, ROADMAP.md R4;
+    nothing holds the port to that.)"""
+    from repro_torch.serve.decode import GraphedDecodeStep
+
+    cfg = dataclasses.replace(get_config(name).reduced(),
+                              sliding_window=window)
+    params = lm.init_params(cfg, 0, device="cpu")
+    toks = t(_tokens(cfg, b=2, s=prefill + 1))
+    _, caches, _ = lm.forward(params, {"tokens": toks[:, :prefill]}, cfg,
+                              mode="prefill")
+    assert lm.attention_cache_len(caches) == prefill
+    before = [leaf.clone() for _, leaf, _ in lm.cache_leaves(caches)]
+    with pytest.raises(attn.CachePositionError, match="not a ring") as err:
+        lm.decode_step(params, toks[:, prefill:], caches, prefill, cfg)
+    assert isinstance(err.value, IndexError)
+    assert all(torch.equal(a, b) for a, (_, b, _) in
+               zip(before, lm.cache_leaves(caches)))
+    with pytest.raises(attn.CachePositionError):
+        GraphedDecodeStep(params, caches, cfg)
+    first = next(i for i, k in enumerate(cfg.layer_pattern) if k == "attn")
+    x = torch.zeros((2, 1, cfg.d_model))
+    with pytest.raises(attn.CachePositionError):
+        attn.attention_decode(params["layers"][first]["mixer"], x,
+                              lm.layer_cache(caches, first), prefill, cfg)
+    _, ring, _ = lm.forward(params, {"tokens": toks[:, :prefill]}, cfg,
+                            mode="prefill", cache_len=window)
+    GraphedDecodeStep(params, ring, cfg)        # a ring: accepted
+    got, _ = lm.decode_step(params, toks[:, prefill:], ring, prefill, cfg)
+    want, _, _ = lm.forward(params, {"tokens": toks}, cfg)
+    within(got.numpy(), want[:, -1:].numpy())
 
 
 def test_init_params_seeded_and_shaped():

@@ -308,7 +308,7 @@ def test_server_resets_a_slot_in_place_and_stops_at_max_len():
 
 
 def test_unported_family_refused_by_the_server():
-    cfg = get_config("mamba2-2.7b").reduced()
+    cfg = get_config("qwen2-vl-72b").reduced()
     with pytest.raises(NotImplementedError):
         BatchedServer({}, cfg, batch_slots=1, max_len=8, device="cpu")
 
@@ -350,6 +350,32 @@ def test_launch_serve_no_reduced_reaches_the_published_config(monkeypatch):
     assert seen[-1] == get_config("qwen3-0.6b")
     with pytest.raises(SystemExit):
         serve_cli.main(["--device", "cpu", "--arch", "hubert-xlarge"])
+
+
+@pytest.mark.parametrize("arch,layers", [
+    ("deepseek-moe-16b", 28), ("kimi-k2-1t-a32b", 61), ("mamba2-2.7b", 64),
+    ("recurrentgemma-2b", 26)])
+def test_launch_serve_reaches_the_other_families(arch, layers, capsys,
+                                                 monkeypatch):
+    """The MoE, SSM and hybrid families serve reduced on the CPU through
+    the CLI; ``--no-reduced`` reaches their published configs."""
+    done = serve_cli.main(["--device", "cpu", "--arch", arch, "--requests",
+                           "3", "--slots", "2", "--max-new", "5"])
+    assert len(done) == 3 and all(r.done for r in done)
+    assert "served 3 requests" in capsys.readouterr().out
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def fake_init(cfg, seed=0, **kw):
+        seen.append(cfg)
+        raise Stop
+
+    monkeypatch.setattr(serve_cli.lm, "init_params", fake_init)
+    with pytest.raises(Stop):
+        serve_cli.main(["--device", "cpu", "--arch", arch, "--no-reduced"])
+    assert seen[-1] == get_config(arch) and seen[-1].num_layers == layers
 
 
 @pytest.mark.cuda
