@@ -63,7 +63,18 @@ paths on the paper's 10k-node SBM and on the ``cl-100k-1d8-l5`` stand-in
   routed apart counted; mamba2, chaotic in bf16, held layer by layer),
   prefill + decode against a forward (recurrentgemma past its window, and
   ``generate``), deepseek's server graphed against eager, mamba2's against
-  a forward, and one graphed step each beside its bytes bound.
+  a forward, and one graphed step each beside its bytes bound;
+* training (phase 16): one AdamW and one Adafactor step of reduced
+  ``qwen3-0.6b`` against the committed JAX fixture (loss, grad norm, every
+  leaf's gradient, the updated parameters), ``qwen3-0.6b`` at full width
+  in bf16: one step against an f32 step of the same weights cut to 2
+  layers (logits, loss, every leaf's gradient, the updated weights), then
+  at all 28 layers the logits and first loss against f32 and 20 AdamW
+  steps on ``batch_at`` data (step time, tokens/s beside the FLOP bound,
+  peak memory, a falling loss, one step profiled), a few Adafactor steps,
+  again with ``remat="full"`` (a lower peak) and at microbatches 2 against
+  1, and ``repro_torch.launch.train`` SIGKILLed after an in-loop
+  checkpoint and resumed to an uninterrupted run's digest.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; phase 11 counts its own checks apart, phase 12 its
@@ -231,6 +242,55 @@ CHAOTIC_AT = 1.0
 # ROUTER_FLIP_SLACK * eps * |h| * max_e |w_e|.  Tokens routed apart are
 # counted, not held to the logit bound.
 ROUTER_FLIP_SLACK = 2.0
+# Training (phase 16): the committed JAX fixture of one step (reduced
+# qwen3-0.6b, f32, a constant lr, attention chunk 8); the full-width run's
+# B x S (S = 1,024 would hold ~4x the masked schedule's f32 attention
+# blocks, ~90 GB by PERF.md's reckoning: over the card), its AdamW steps and
+# cosine schedule, the remat run's steps; the launcher's kill-and-resume
+# run (reduced, in bf16, a checkpoint every 4 of 100 steps) and its wait.
+TRAIN_FIXTURE = "tests/torch_fixtures/lm_train_reduced.npz"
+TRAIN_FIXTURE_LR, TRAIN_FIXTURE_CHUNK = 1e-3, 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 20
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
+REMAT_STEPS, ADAFACTOR_STEPS = 3, 3
+KILL_ARGS = ["--arch", LM_ARCH, "--steps", "100", "--batch", "8", "--seq",
+             "128", "--ckpt-interval", "4", "--log-every", "50"]
+# the launcher's main on the reduced config in bf16 (its checkpoints then
+# hold bf16 leaves), given KILL_ARGS
+KILL_MAIN = f"""
+import dataclasses, sys
+from repro_torch.configs import get_config
+from repro_torch.launch import train
+cfg = dataclasses.replace(get_config({LM_ARCH!r}).reduced(),
+                          param_dtype="bfloat16", compute_dtype="bfloat16")
+train.main(sys.argv[1:], cfg=cfg)
+"""
+KILL_WAIT_S = 300
+U32 = 2.0 ** -24               # f32 unit roundoff
+U_BF16 = 2.0 ** -8             # bf16's: 8 significant bits, nearest
+# The bf16 step against an f32 step of the same weights, qwen3-0.6b at its
+# published widths cut to CUT_LAYERS of 28 layers (the f32 copy's backward
+# at full depth would not fit beside the bf16 run's), at a constant
+# CUT_LR (an update far above a bf16 ulp of the weights, so a missing or
+# wrong update cannot hide in their rounding).  Each bound adds up the
+# roundings on its path in the worst case, each at most 2^-8 (their random
+# walk, the square root of the count times 2^-8, is what a sound run should
+# read; at two layers the head's roundings are a large part of it, so the
+# walk over the layers alone, BF16_REL's form, is no bound there).  Logits:
+# ~6 a layer, the final norm and the head's product: (6 * 2 + 2) * 2^-8 =
+# 0.0547 of max|z|.  Each leaf's gradient, |g_bf16 - g_f32|_2 <=
+# CUT_GRAD_REL * |g_f32|_2: on the path from the loss to a leaf and back,
+# ~6 a layer forward and 12 back (each product's two gradients), 4 at the
+# head and the loss (logits and their gradient, the head's two products):
+# (18 * 2 + 4) * 2^-8 = 0.156.  The loss: |dCE| <= 2 max|dz| a token, with
+# the measured max|dz|.  The updated weights: ``adamw_step_bound`` from
+# each run's own clipped gradient, each p1 rounded to bf16 (a gradient
+# whose sign differs between the runs may move its weight by 2 lr: there
+# the bound is met nearly exactly).
+CUT_LAYERS, CUT_LR = 2, 1e-2
+CUT_LOGIT_REL = (6 * CUT_LAYERS + 2) * 2.0 ** -8
+CUT_GRAD_REL = (18 * CUT_LAYERS + 4) * 2.0 ** -8
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
 
 
 def say(line: str) -> None:
@@ -2470,6 +2530,7 @@ def lm_phase(torch, card, seed: int = 0) -> dict:
     from repro_torch.convert import lm_params_from_reference, tree_from_flat
     from repro_torch.models import lm
     from repro_torch.serve.batching import BatchedServer, Request
+    from repro_torch.tree import tree_leaves, tree_map
     from repro_torch.serve.decode import GraphedDecodeStep, make_prefill
 
     if torch.backends.cuda.matmul.allow_tf32 \
@@ -2495,9 +2556,9 @@ def lm_phase(torch, card, seed: int = 0) -> dict:
     t0 = time.perf_counter()
     params = lm.init_params(cfg, seed, device=DEVICE)
     sync()
-    n = sum(p.numel() for p in lm.param_tensors(params))
+    n = sum(p.numel() for p in tree_leaves(params))
     nbytes = sum(p.numel() * p.element_size()
-                 for p in lm.param_tensors(params))
+                 for p in tree_leaves(params))
     if n != lm.tree_size_from_param_count(cfg) \
             or cfg.param_count() != 596_071_424:
         raise AssertionError(f"{n} parameters, param_count "
@@ -2531,11 +2592,11 @@ def lm_phase(torch, card, seed: int = 0) -> dict:
     # (c) card against host, f32
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                 compute_dtype="float32")
-    p32 = map_tree(lambda t: t.float(), params)
+    p32 = tree_map(lambda t: t.float(), params)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64))
                             .astype(np.int32))
     t0 = time.perf_counter()
-    want_host, _, _ = lm.forward(map_tree(lambda t: t.cpu(), p32),
+    want_host, _, _ = lm.forward(tree_map(lambda t: t.cpu(), p32),
                                  {"tokens": toks}, cfg32)
     host_s = time.perf_counter() - t0
     full32, _, _ = lm.forward(p32, {"tokens": toks.to(DEVICE)}, cfg32)
@@ -2787,16 +2848,10 @@ FAMILY_PARAM_COUNTS = {"deepseek-moe-16b": 16_879_626_240,
                        "recurrentgemma-2b": 2_658_664_960}
 
 
-def map_tree(fn, tree):
-    if isinstance(tree, dict):
-        return {k: map_tree(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [map_tree(fn, v) for v in tree]
-    return fn(tree)
+def tree_bytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
 
-
-def tree_bytes(lm, tree) -> int:
-    return sum(p.numel() * p.element_size() for p in lm.param_tensors(tree))
+    return sum(p.numel() * p.element_size() for p in tree_leaves(tree))
 
 
 def serve_requests(rng, vocab, n, prompt, new):
@@ -3092,6 +3147,7 @@ def family_phase(torch, card, arch, where: list, seed: int = 0) -> dict:
     from repro_torch.models import moe as moe_mod
     from repro_torch.serve.batching import BatchedServer
     from repro_torch.serve.decode import GraphedDecodeStep, generate
+    from repro_torch.tree import tree_leaves, tree_map
 
     out = {}
     rng = np.random.default_rng(seed)
@@ -3113,8 +3169,8 @@ def family_phase(torch, card, arch, where: list, seed: int = 0) -> dict:
     t0 = time.perf_counter()
     params = lm.init_params(cfg, seed, device=DEVICE)
     sync()
-    n = sum(p.numel() for p in lm.param_tensors(params))
-    nbytes = tree_bytes(lm, params)
+    n = sum(p.numel() for p in tree_leaves(params))
+    nbytes = tree_bytes(params)
     if n != lm.tree_size_from_param_count(cfg) \
             or cfg.param_count() != FAMILY_PARAM_COUNTS[arch]:
         raise AssertionError(f"{arch}: {n} parameter elements, param_count "
@@ -3134,7 +3190,7 @@ def family_phase(torch, card, arch, where: list, seed: int = 0) -> dict:
         cut = dict(params, layers=params["layers"][:MOE_F32_LAYERS])
     cfg32 = dataclasses.replace(cut_cfg, param_dtype="float32",
                                 compute_dtype="float32")
-    p32 = map_tree(lambda t: t.float(), cut)
+    p32 = tree_map(lambda t: t.float(), cut)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                          (CHECK_BATCH, CHECK_SEQ))
                             .astype(np.int32))
@@ -3146,7 +3202,7 @@ def family_phase(torch, card, arch, where: list, seed: int = 0) -> dict:
     try:
         moe_mod.moe_forward = spies["host"]
         t0 = time.perf_counter()
-        want_host, _, _ = lm.forward(map_tree(lambda t: t.cpu(), p32),
+        want_host, _, _ = lm.forward(tree_map(lambda t: t.cpu(), p32),
                                      {"tokens": toks}, cfg32)
         host_s = time.perf_counter() - t0
         moe_mod.moe_forward = spies["f32"]
@@ -3173,7 +3229,7 @@ def family_phase(torch, card, arch, where: list, seed: int = 0) -> dict:
     out["condition"] = {"one_ulp_logit_change": sens, "kappa": kappa,
                         "f32_bound": f32_rel, "chaotic_in_bf16": chaotic}
     out["c"] = {"layers": cut_cfg.num_layers, "bound": f32_rel,
-                "f32_bytes": tree_bytes(lm, p32), "host_forward_s": host_s}
+                "f32_bytes": tree_bytes(p32), "host_forward_s": host_s}
     where[0] = "(c) card vs host"
     if cfg.moe is None:
         out["c"]["rel_err"] = hold(torch, full32, want_host, f32_rel)
@@ -3519,6 +3575,522 @@ def families_phase(torch, card, seed: int = 0) -> dict:
         parts.append(txt + f"; {o['phase_s']:.0f} s")
     say(f"phase 15 MoE, SSM and hybrid decoders at full width ({card}): "
         + " | ".join(parts))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: training
+# ---------------------------------------------------------------------------
+
+def train_fixture_check(torch) -> dict:
+    """(a) One AdamW and one Adafactor step of reduced qwen3-0.6b (f32, TF32
+    off) from the weights of the LM fixture, against the committed JAX
+    fixture: loss and grad norm within 1e-5 relative, every leaf's gradient
+    within 1e-4 * max|want| + 1e-5, the updated parameters within the CPU
+    tests' bounds (``adamw_step_bound``, ``adafactor_step_bound`` at 1e-4).
+    -> the worst of each over its bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import (lm_params_from_reference,
+                                     lm_params_to_reference, tree_from_flat)
+    from repro_torch.train import loop
+    from repro_torch.train.optimizers import (adafactor_step_bound,
+                                              adamw_step_bound, get_optimizer)
+    from repro_torch.tree import flatten_with_paths
+
+    def flat64(tree):
+        return {k: v.double() for k, v in flatten_with_paths(tree).items()}
+
+    cfg = get_config(LM_ARCH).reduced()
+    with np.load(os.path.join(REPO, TRAIN_FIXTURE)) as f:
+        fix = {k: f[k] for k in f.files}
+    with np.load(os.path.join(REPO, LM_FIXTURE)) as f:
+        params = lm_params_to_reference(lm_params_from_reference(
+            tree_from_flat({k: f[k] for k in f.files}, "param/"), cfg,
+            device=DEVICE), cfg)
+    toks = torch.from_numpy(fix["tokens"]).to(DEVICE)
+    p0 = flat64(params)
+    _, g = loop.grad_and_metrics(params, {"tokens": toks}, cfg,
+                                 chunk=TRAIN_FIXTURE_CHUNK)
+    got_g = flat64(g)
+    worst = {"loss": 0.0, "grad_norm": 0.0, "grad": 0.0, "param": 0.0}
+    for name in ("adamw", "adafactor"):
+        opt = get_optimizer(name, TRAIN_FIXTURE_LR)
+        p1, _, m = loop.make_train_step(cfg, opt, chunk=TRAIN_FIXTURE_CHUNK)(
+            params, opt.init(params), {"tokens": toks})
+        for key in ("loss", "grad_norm"):
+            want = float(fix[f"{name}/{key}"])
+            worst[key] = max(worst[key],
+                             abs(float(m[key]) - want) / abs(want) / 1e-5)
+        s_got = min(1.0, 1.0 / max(float(m["grad_norm"]), 1e-9))
+        s_want = min(1.0, 1.0 / max(float(fix[f"{name}/grad_norm"]), 1e-9))
+        got_p = flat64(p1)
+        for k, p in p0.items():
+            want_g = torch.from_numpy(fix["grad/" + k]).to(DEVICE).double()
+            bound = 1e-4 * float(want_g.abs().max()) + 1e-5
+            worst["grad"] = max(worst["grad"], float(
+                (got_g[k] - want_g).abs().max()) / bound)
+            want_p = torch.from_numpy(fix[f"{name}/param/" + k]).to(
+                DEVICE).double()
+            if name == "adamw":
+                bound = adamw_step_bound(got_g[k] * s_got, want_g * s_want,
+                                         got_p[k], want_p, TRAIN_FIXTURE_LR)
+            else:
+                bound = adafactor_step_bound(want_p - p, p, 1e-4)
+            worst["param"] = max(worst["param"], float(
+                ((got_p[k] - want_p).abs() / bound).max()))
+    for key, v in worst.items():
+        if not v <= 1.0:
+            raise AssertionError(f"training fixture: {key} at {v:.3g} of "
+                                 f"its bound")
+    return worst
+
+
+def launcher_kill_resume(torch, tmp) -> dict:
+    """(c) ``repro_torch.launch.train.main`` on the card in processes of
+    its own (``KILL_MAIN``: reduced qwen3-0.6b in bf16, so its checkpoints
+    hold bf16 leaves): an uninterrupted run; a run SIGKILLed once an in-loop
+    checkpoint is on disk, then resumed with the same flags; their final
+    checkpoints' digests and every leaf equal."""
+    import signal
+
+    from repro_torch.checkpoint import ckpt
+
+    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")
+           + os.pathsep + os.environ.get("PYTHONPATH", "")}
+
+    def spawn(d):
+        return subprocess.Popen(
+            [sys.executable, "-c", KILL_MAIN, *KILL_ARGS, "--ckpt-dir", d],
+            cwd=REPO, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+
+    def finish(proc):
+        try:
+            out, _ = proc.communicate(timeout=KILL_WAIT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate(timeout=30)
+            raise AssertionError(f"train did not end in {KILL_WAIT_S} s:\n"
+                                 f"{out[-2000:]}")
+        if proc.returncode != 0:
+            raise AssertionError(f"train failed:\n{out[-2000:]}")
+        return out
+
+    straight, killed = os.path.join(tmp, "straight"), \
+        os.path.join(tmp, "killed")
+    t0 = time.perf_counter()
+    procs = [spawn(straight), spawn(killed)]
+    try:
+        child = procs[1]
+        deadline = time.time() + KILL_WAIT_S
+        while time.time() < deadline and child.poll() is None:
+            if ckpt.available_steps(killed):
+                child.send_signal(signal.SIGKILL)
+                child.wait(timeout=30)
+                break
+            time.sleep(0.01)
+        finish(procs[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    if child.returncode != -signal.SIGKILL:
+        raise AssertionError(f"the run was not killed mid-way "
+                             f"(rc {child.returncode})")
+    at_kill = ckpt.available_steps(killed)
+    steps = int(KILL_ARGS[KILL_ARGS.index("--steps") + 1])
+    if not at_kill or at_kill[-1] >= steps:
+        raise AssertionError(f"no in-loop checkpoint at the kill: {at_kill}")
+    resumed = finish(spawn(killed))
+    if f"resumed from step {at_kill[-1]}" not in resumed:
+        raise AssertionError(f"did not resume from {at_kill[-1]}:\n"
+                             f"{resumed[-2000:]}")
+    wall = time.perf_counter() - t0
+    a, _ = ckpt.restore_arrays(straight, steps, verify=True)
+    b, _ = ckpt.restore_arrays(killed, steps, verify=True)
+    with open(os.path.join(straight, f"step_{steps:010d}",
+                           "manifest.json")) as f:
+        ma = json.load(f)
+    with open(os.path.join(killed, f"step_{steps:010d}",
+                           "manifest.json")) as f:
+        mb = json.load(f)
+    differ = sorted(k for k in a if a[k].tobytes() != b[k].tobytes())
+    bf16 = sorted(k for k, e in mb["index"].items()
+                  if e["dtype"] == "bfloat16")
+    if ma["digest"] != mb["digest"] or differ or set(a) != set(b):
+        raise AssertionError(f"resumed run differs: digests "
+                             f"{ma['digest'][:12]} / {mb['digest'][:12]}, "
+                             f"leaves {differ[:5]}")
+    if not bf16:
+        raise AssertionError("no bf16 leaf in the checkpoint")
+    return {"killed_after_checkpoint": at_kill[-1], "steps": steps,
+            "digest": mb["digest"], "leaves": len(a), "bf16_leaves": len(bf16),
+            "wall_s": wall}
+
+
+def bf16_step_against_f32(torch, cfg, batch, seed: int) -> dict:
+    """One AdamW step of ``cfg`` at its published widths cut to
+    ``CUT_LAYERS`` layers, in bf16 and in f32 from the same (bf16-valued)
+    weights on ``batch``, at a constant ``CUT_LR``: the logits within
+    ``CUT_LOGIT_REL``, the loss within 2 max|dz| of the two runs' logits,
+    each leaf's gradient within ``CUT_GRAD_REL`` of its f32 norm, the
+    updated weights within ``adamw_step_bound``.  -> the readings."""
+    import dataclasses
+
+    from repro_torch.convert import lm_params_to_reference, unstack_layers
+    from repro_torch.models import lm
+    from repro_torch.train import loop
+    from repro_torch.train.optimizers import adamw_step_bound, get_optimizer
+    from repro_torch.tree import flatten_with_paths, tree_map
+
+    cut = dataclasses.replace(cfg, num_layers=CUT_LAYERS)
+    cut32 = dataclasses.replace(cut, param_dtype="float32",
+                                compute_dtype="float32")
+    runs = {}
+    p16 = lm_params_to_reference(lm.init_params(cut, seed, device=DEVICE),
+                                 cut)
+    for name, c, p in (("bf16", cut, p16),
+                       ("f32", cut32, tree_map(lambda t: t.float(), p16))):
+        with torch.no_grad():
+            z, _, _ = lm.forward(unstack_layers(p, c), batch, c)
+        m, g = loop.grad_and_metrics(p, batch, c)
+        opt = get_optimizer("adamw", CUT_LR)
+        p1, _, sm = loop.make_train_step(c, opt)(p, opt.init(p), batch)
+        runs[name] = {"z": z, "loss": float(sm["loss"]),
+                      "grad_norm": float(sm["grad_norm"]),
+                      "g": flatten_with_paths(g), "p1": flatten_with_paths(p1)}
+        del z, g, p1
+    a, b = runs["bf16"], runs["f32"]
+    dz = float((a["z"] - b["z"]).abs().max())
+    zmax = float(b["z"].abs().max())
+    del a["z"], b["z"]
+    out = {"layers": CUT_LAYERS, "lr": CUT_LR, "logit_max_abs_diff": dz,
+           "logit_bound": CUT_LOGIT_REL * zmax + F32_ATOL,
+           "loss_bf16": a["loss"], "loss_f32": b["loss"],
+           "loss_bound": 2 * dz}
+    if not dz <= out["logit_bound"]:
+        raise AssertionError(f"cut bf16 logits off f32 by {dz:.4g} > "
+                             f"{out['logit_bound']:.4g}")
+    if not abs(a["loss"] - b["loss"]) <= 2 * dz:
+        raise AssertionError(f"cut bf16 loss {a['loss']} vs f32 "
+                             f"{b['loss']}: outside 2 max|dz| = {2 * dz:.4g}")
+    p0 = flatten_with_paths(p16)
+    s_a = min(1.0, 1.0 / max(a["grad_norm"], 1e-9))
+    s_b = min(1.0, 1.0 / max(b["grad_norm"], 1e-9))
+    grad_rel, upd, moved = {}, 0.0, 0
+    for k, gb in b["g"].items():
+        ga = a["g"][k].float()
+        norm = float(gb.norm())
+        if not (norm > 0 and bool(torch.isfinite(ga).all())):
+            raise AssertionError(f"cut gradient {k}: f32 norm {norm}, "
+                                 f"bf16 finite {bool(torch.isfinite(ga).all())}")
+        grad_rel[k] = float((ga - gb).norm()) / norm
+        p1a, p1b = a["p1"][k].double(), b["p1"][k].double()
+        bound = adamw_step_bound(ga.double() * s_a, gb.double() * s_b, p1a,
+                                 p1b, CUT_LR, U_BF16)
+        upd = max(upd, float(((p1a - p1b).abs() / bound).max()))
+        moved += int((p1a != p0[k].double()).sum())
+    worst = max(grad_rel, key=grad_rel.get)
+    out.update(grad_rel_worst=grad_rel[worst], grad_rel_worst_leaf=worst,
+               grad_rel_median=float(np.median(list(grad_rel.values()))),
+               grad_rel_bound=CUT_GRAD_REL, update_worst_over_bound=upd,
+               elements=sum(v.numel() for v in b["p1"].values()),
+               elements_moved_bf16=moved)
+    if not grad_rel[worst] <= CUT_GRAD_REL:
+        raise AssertionError(f"cut bf16 gradient {worst} off f32 by "
+                             f"{grad_rel[worst]:.4g} of its norm > "
+                             f"{CUT_GRAD_REL:.4g}")
+    if not upd <= 1.0:
+        raise AssertionError(f"cut bf16 update at {upd:.3g} of its bound")
+    return out
+
+
+def train_phase(torch, card, seed: int = 0) -> dict:
+    """Phase 16: training.  (a) ``train_fixture_check``; (b) ``qwen3-0.6b``
+    at its published widths in bf16 on seeded weights and ``batch_at``
+    data: ``bf16_step_against_f32`` (cut to ``CUT_LAYERS`` layers); at all
+    28 layers, the bf16 logits and the first step's loss against an f32
+    forward of the same weights, then ``TRAIN_STEPS`` AdamW steps at B x S
+    = ``TRAIN_BATCH`` x ``TRAIN_SEQ`` (step time, tokens/s beside the FLOP
+    bound, peak memory, the loss curve, which must fall), a few Adafactor
+    steps, the same shape with ``remat="full"`` (a lower peak), and one
+    step at microbatches 2 against 1; (c) ``launcher_kill_resume``.  Prints
+    one line; returns the numbers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_to_reference, unstack_layers
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models import lm
+    from repro_torch.train import loop
+    from repro_torch.train.optimizers import (adamw_step_bound,
+                                              cosine_schedule, get_optimizer)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    if torch.backends.cuda.matmul.allow_tf32 \
+            or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("f32 matmuls would run in TF32")
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    out = {}
+    t_phase = time.perf_counter()
+
+    # (a) the committed JAX fixture
+    t0 = time.perf_counter()
+    out["a"] = train_fixture_check(torch)
+    out["a"]["s"] = time.perf_counter() - t0
+
+    # (b) full width
+    cfg = get_config(LM_ARCH)
+    if (cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size,
+            cfg.param_dtype) != (28, 1024, 3072, 151_936, "bfloat16"):
+        raise AssertionError(f"{LM_ARCH} is not the published config")
+    b, s, steps = TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS
+    dc = DataConfig(cfg.vocab_size, s, b, seed=seed)
+    batches = [{"tokens": torch.from_numpy(batch_at(dc, i)["tokens"])
+                .to(DEVICE)} for i in range(steps)]
+
+    def fresh():
+        """The seeded weights in the reference's layout, as the train step
+        takes them."""
+        return lm_params_to_reference(lm.init_params(cfg, seed, device=DEVICE),
+                                      cfg)
+
+    def sync():
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    out["cut"] = bf16_step_against_f32(torch, cfg, batches[0], seed)
+    out["cut"]["s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    params = fresh()
+    n = sum(p.numel() for p in tree_leaves(params))
+    nbytes = tree_bytes(params)
+    # the bf16 and the f32 logits of the same weights on the first batch
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    with torch.no_grad():
+        z16, _, _ = lm.forward(unstack_layers(params, cfg), batches[0], cfg)
+        p32 = tree_map(lambda t: t.float(), params)
+        del params
+        logits32, _, _ = lm.forward(unstack_layers(p32, cfg32), batches[0],
+                                    cfg32)
+        del p32
+        toks0 = batches[0]["tokens"]
+        loss32, _ = loop.cross_entropy(logits32[:, :-1], toks0[:, 1:],
+                                       cfg.vocab_size)
+        loss32 = float(loss32)
+        zmax = float(logits32.abs().max())
+        dz = float((z16 - logits32).abs().max())
+        del z16, logits32
+    torch.cuda.empty_cache()
+    logit_bound = BF16_REL * zmax + F32_ATOL
+    if not dz <= logit_bound:
+        raise AssertionError(f"bf16 logits off f32 by {dz:.4g} > "
+                             f"{logit_bound:.4g}")
+
+    def profile_step(p, state, step_fn):
+        """One more step under ``torch.profiler``: its wall time (the
+        profiler's own cost included), the device's busy time, and the aten
+        ops with the most device time (their kernels', summed over the
+        step), with the share of it in GEMM kernels and in ``aten::stack``
+        (the backward of the layers' ``unbind``: each stacked leaf's
+        gradient written once)."""
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        sync()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            step_fn(p, state, batches[0])
+            sync()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy_us, records = device_busy(torch, prof)
+        _, by_name = device_time_by_kind(torch, prof)
+        gemm_us = sum(us for name, us in by_name.items()
+                      if "gemm" in name or "xmma" in name)
+        avgs = prof.key_averages()
+        ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in avgs
+                      if e.key.startswith("aten::")
+                      and e.self_device_time_total > 0),
+                     key=lambda r: -r[1])
+        stack = [(e.device_time_total / 1e3, e.count) for e in avgs
+                 if e.key == "aten::stack"] or [(0.0, 0)]
+        return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+                "device_records": records, "gemm_kernel_ms": gemm_us / 1e3,
+                "stack_ms": stack[0][0], "stack_calls": stack[0][1],
+                "top_aten_ops_ms": [[k, round(ms, 3), n]
+                                    for k, ms, n in ops[:12]]}
+
+    def run(cfg_run, n_steps, micro=1, profile=False, opt_name="adamw"):
+        p = fresh()
+        opt = get_optimizer(opt_name, cosine_schedule(TRAIN_LR, TRAIN_WARMUP,
+                                                      steps))
+        state = opt.init(p)
+        step_fn = loop.make_train_step(cfg_run, opt, microbatches=micro)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times, losses = [], []
+        for i in range(n_steps):
+            t0 = time.perf_counter()
+            p, state, m = step_fn(p, state, batches[i])
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        peak = torch.cuda.max_memory_allocated()
+        prof = profile_step(p, state, step_fn) if profile else None
+        return times, losses, peak, base, prof
+
+    times, losses, peak, base, prof = run(cfg, steps, profile=True)
+    torch.cuda.empty_cache()
+    # the FLOP bound: 6 N per token for the matmuls of the weights (N the
+    # tree's elements: the tied embedding once, as the head), plus the
+    # causal attention's QK^T and PV, forward (x1) and backward (x2), at
+    # the bf16 tensor-core peak; and the work as the port does it, whose
+    # masked schedule computes every block of S x S in f32
+    attn_causal = 3 * 2 * 2 * b * cfg.num_heads * s * s \
+        * cfg.resolved_head_dim * cfg.num_layers / 2
+    matmul_flop = 6 * n * b * s
+    flop = matmul_flop + attn_causal
+    bound_ms = flop / BF16_OPS_PER_S * 1e3
+    as_done_ms = (matmul_flop / BF16_OPS_PER_S
+                  + 2 * attn_causal / FP32_OPS_PER_S) * 1e3
+    steady = np.asarray(times[1:])
+    p50 = float(np.percentile(steady, 50))
+    head = np.mean(losses[:5])
+    tail = np.mean(losses[-5:])
+    if not tail < head:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    loss_bound = 2 * dz
+    if not abs(losses[0] - loss32) <= loss_bound:
+        raise AssertionError(f"bf16 loss {losses[0]} vs f32 {loss32}: "
+                             f"outside {loss_bound:.4g}")
+    out["b"] = {
+        "batch": b, "seq": s, "steps": steps, "tokens_per_step": b * s,
+        "param_elements": n, "param_bytes": nbytes,
+        "state_bytes_at_start": base,
+        "step_ms": times, "step_ms_p50": p50,
+        "step_ms_p95": float(np.percentile(steady, 95)),
+        "tokens_per_s": b * s / (p50 / 1e3),
+        "flop_per_step": flop, "bound_ms": bound_ms, "bound_by": "operations",
+        "bound_share": bound_ms / p50,
+        "bound_ms_as_computed": as_done_ms,
+        "bound_share_as_computed": as_done_ms / p50,
+        "peak_bytes": peak, "losses": losses,
+        "loss_first5_mean": float(head), "loss_last5_mean": float(tail),
+        "first_loss_bf16": losses[0], "first_loss_f32": loss32,
+        "first_loss_bound": loss_bound, "f32_max_abs_logit": zmax,
+        "logit_max_abs_diff": dz, "logit_bound": logit_bound,
+        "profiled_step": prof,
+        "device_busy_share_of_p50": prof["device_busy_ms"] / p50}
+
+    # Adafactor, same shape
+    atimes, alosses, apeak, abase, _ = run(cfg, ADAFACTOR_STEPS,
+                                           opt_name="adafactor")
+    torch.cuda.empty_cache()
+    out["adafactor"] = {"steps": ADAFACTOR_STEPS, "step_ms": atimes,
+                        "step_ms_p50_after_first":
+                            float(np.median(atimes[1:])),
+                        "peak_bytes": apeak, "state_bytes_at_start": abase,
+                        "losses": alosses}
+
+    # remat full, same shape
+    rcfg = dataclasses.replace(cfg, remat="full")
+    rtimes, rlosses, rpeak, _, _ = run(rcfg, REMAT_STEPS)
+    torch.cuda.empty_cache()
+    if not rpeak < peak:
+        raise AssertionError(f"remat peak {rpeak} not below {peak}")
+    out["remat"] = {"steps": REMAT_STEPS, "step_ms": rtimes,
+                    "step_ms_p50_after_first": float(np.median(rtimes[1:])),
+                    "peak_bytes": rpeak, "losses": rlosses,
+                    "first_loss_equal": rlosses[0] == losses[0]}
+
+    # microbatches 2 against 1 on the first step
+    lr = float(cosine_schedule(TRAIN_LR, TRAIN_WARMUP, steps)(
+        torch.tensor(1)))
+    p0 = fresh()
+    _, g1 = loop.grad_and_metrics(p0, batches[0], cfg)
+    half = b // 2
+    ga = loop.grad_and_metrics(
+        p0, {"tokens": batches[0]["tokens"][:half]}, cfg)[1]
+    gb = loop.grad_and_metrics(
+        p0, {"tokens": batches[0]["tokens"][half:]}, cfg)[1]
+    g2 = [(x.float() + y.float()) / 2
+          for x, y in zip(tree_leaves(ga), tree_leaves(gb))]
+    del ga, gb
+    res = {}
+    for micro in (1, 2):
+        opt = get_optimizer("adamw", cosine_schedule(TRAIN_LR, TRAIN_WARMUP,
+                                                     steps))
+        p1, _, m = loop.make_train_step(cfg, opt, microbatches=micro)(
+            p0, opt.init(p0), batches[0])
+        res[micro] = (tree_leaves(p1), m)
+        del p1
+    l1, l2 = float(res[1][1]["loss"]), float(res[2][1]["loss"])
+    if not abs(l2 - l1) <= 1e-5 * abs(l1):
+        raise AssertionError(f"microbatch losses {l1} / {l2}")
+    s1 = min(1.0, 1.0 / max(float(res[1][1]["grad_norm"]), 1e-9))
+    s2 = min(1.0, 1.0 / max(float(res[2][1]["grad_norm"]), 1e-9))
+    worst = 0.0
+    differ = 0
+    for x1, x2, ga_, gb_ in zip(res[1][0], res[2][0], tree_leaves(g1), g2):
+        x1, x2 = x1.double(), x2.double()
+        bound = adamw_step_bound(ga_.double() * s1, gb_.double() * s2, x1,
+                                 x2, lr, U_BF16)
+        worst = max(worst, float(((x1 - x2).abs() / bound).max()))
+        differ += int((x1 != x2).sum())
+    if not worst <= 1.0:
+        raise AssertionError(f"microbatch updates at {worst:.3g} of their "
+                             f"bound")
+    out["microbatches"] = {"loss_1": l1, "loss_2": l2,
+                           "loss_rel_diff": abs(l2 - l1) / abs(l1),
+                           "update_worst_over_bound": worst,
+                           "elements_that_differ": differ}
+    del res, g1, g2, p0
+    torch.cuda.empty_cache()
+
+    # (c) the entry point, killed and resumed
+    with tempfile.TemporaryDirectory() as tmp:
+        out["c"] = launcher_kill_resume(torch, tmp)
+    out["seconds"] = time.perf_counter() - t_phase
+    bb, r, c, ct = out["b"], out["remat"], out["c"], out["cut"]
+    say(f"phase 16 training ({card}): (a) reduced {LM_ARCH} vs the JAX "
+        f"fixture, AdamW and Adafactor steps: worst of bound loss "
+        f"{out['a']['loss']:.3g}, grad norm {out['a']['grad_norm']:.3g}, "
+        f"gradients {out['a']['grad']:.3g}, parameters "
+        f"{out['a']['param']:.3g}; (b) {LM_ARCH} full width cut to "
+        f"{CUT_LAYERS} layers, one bf16 step vs f32: logits "
+        f"{ct['logit_max_abs_diff']:.4g} (bound {ct['logit_bound']:.4g}), "
+        f"loss {abs(ct['loss_bf16'] - ct['loss_f32']):.4g} (bound "
+        f"{ct['loss_bound']:.4g}), gradients worst "
+        f"{ct['grad_rel_worst']:.4g} of the f32 norm "
+        f"({ct['grad_rel_worst_leaf']}; median {ct['grad_rel_median']:.4g}; "
+        f"bound {CUT_GRAD_REL:.4g}), updates {ct['update_worst_over_bound']:.3g}"
+        f" of bound; {LM_ARCH} full width bf16, {n:,} "
+        f"elements, B={b} x S={s}, {steps} AdamW steps: step p50 "
+        f"{bb['step_ms_p50']:.1f} ms p95 {bb['step_ms_p95']:.1f} ms, "
+        f"{bb['tokens_per_s']:,.0f} tok/s, FLOP bound {bound_ms:.2f} ms "
+        f"(share {bb['bound_share']:.3f}; as computed, f32 attention "
+        f"{as_done_ms:.2f} ms, share {bb['bound_share_as_computed']:.3f}), "
+        f"peak {peak / 1e9:.2f} GB, a profiled step's device busy "
+        f"{prof['device_busy_ms']:.1f} ms ({prof['device_busy_ms'] / p50:.3f}"
+        f" of the p50; GEMMs {prof['gemm_kernel_ms']:.1f} ms); loss "
+        f"{losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (first 5 {head:.4f}, last 5 {tail:.4f}); logits "
+        f"bf16 vs f32 {dz:.4g} (bound {logit_bound:.4g}), first loss "
+        f"{abs(losses[0] - loss32):.4g} (bound {loss_bound:.4g}); the "
+        f"gradients' stack {prof['stack_ms']:.2f} ms; Adafactor step "
+        f"{out['adafactor']['step_ms_p50_after_first']:.1f} ms, peak "
+        f"{apeak / 1e9:.2f} GB; remat full peak {rpeak / 1e9:.2f} GB, step "
+        f"{r['step_ms_p50_after_first']:.1f} ms; microbatches 2 vs 1 loss "
+        f"{out['microbatches']['loss_rel_diff']:.3g} rel, updates "
+        f"{worst:.3g} of bound; (c) launcher killed after step "
+        f"{c['killed_after_checkpoint']}, resumed to {c['steps']}: digest "
+        f"equal ({c['bf16_leaves']} bf16 leaves); {out['seconds']:.1f} s")
     return out
 
 
@@ -4223,6 +4795,10 @@ def main() -> int:
     # -- phase 15: the MoE, SSM and hybrid decoders at full width ---------------
     torch.cuda.empty_cache()
     report["families"] = families_phase(torch, card)
+
+    # -- phase 16: training at full width ----------------------------------------
+    torch.cuda.empty_cache()
+    report["training"] = train_phase(torch, card)
 
     # -- phase 7: the kernels line -------------------------------------------
     # Slice 1's kernels: ms per fit of cl-100k-1d8-l5.  The retrieval

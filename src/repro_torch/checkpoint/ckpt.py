@@ -1,5 +1,6 @@
-"""Checkpoint save and array restore (port of ``repro/checkpoint/ckpt.py``:
-``save``, ``available_steps``, ``restore_arrays``).
+"""Checkpoint save and restore (port of ``repro/checkpoint/ckpt.py``:
+``save``, ``available_steps``, ``restore_arrays`` and ``restore`` without
+shardings).
 
 Layout, the reference's unchanged so one directory serves both packages:
 ``<dir>/step_%010d/`` holds one ``.npy`` file per leaf, named by the md5 of
@@ -12,6 +13,14 @@ half-written step behind that name.
 A tree is a (nested) dict, list or tuple of arrays; a leaf's path string
 joins its keys with ``/`` (a flat dict's leaf is named by its key).  Device
 tensors are copied to the host before they are written.
+
+bfloat16 leaves are written as the reference writes them (numpy with
+``ml_dtypes``): a ``.npy`` of two-byte ``<V2`` records holding the bf16
+bits, manifest dtype ``"bfloat16"``.  The port needs no ``ml_dtypes`` for
+that: on the host such a leaf is a ``V2`` array of the bits (``to_host``),
+and ``from_host`` makes it a bf16 tensor again.  (The reference's own
+``restore`` cannot cast such a leaf back; its ``restore_arrays`` can load
+it.)
 """
 
 from __future__ import annotations
@@ -25,31 +34,53 @@ import tempfile
 import numpy as np
 import torch
 
-
-def path_to_str(path) -> str:
-    """A leaf's key path as the reference names it: keys joined by ``/``."""
-    return "/".join(str(p) for p in path)
+from repro_torch.tree import flatten_with_paths, path_to_str
 
 
-def _flatten_with_paths(tree, prefix=()) -> dict:
-    if isinstance(tree, dict):
-        items = tree.items()
-    elif isinstance(tree, (list, tuple)):
-        items = enumerate(tree)
-    else:
-        return {path_to_str(prefix): tree}
-    out = {}
-    for key, sub in items:
-        out.update(_flatten_with_paths(sub, prefix + (key,)))
-    return out
+BF16_RECORD = np.dtype("V2")
+
+
+def is_bf16(arr: np.ndarray) -> bool:
+    """A host array of bf16 bits: ``ml_dtypes``' bfloat16, or the two-byte
+    records ``to_host`` and ``np.load`` give for one."""
+    return arr.dtype.name == "bfloat16" or (arr.dtype.kind == "V"
+                                            and arr.dtype.itemsize == 2)
 
 
 def to_host(leaf) -> np.ndarray:
-    """A leaf as a host numpy array.  A tensor is always copied (a CPU
-    tensor's ``numpy()`` would share its memory with the live state)."""
+    """A leaf as a host numpy array (a bf16 tensor as ``V2`` records of its
+    bits).  A tensor is always copied (a CPU tensor's ``numpy()`` would
+    share its memory with the live state)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(BF16_RECORD)
+        return t.numpy()
     return np.asarray(leaf)
+
+
+def from_host(arr: np.ndarray) -> torch.Tensor:
+    """A host array (bf16 records included) as a CPU tensor, bit for bit."""
+    arr = np.array(arr, order="C")           # a copy; 0-d stays 0-d
+    if is_bf16(arr):
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    return "bfloat16" if is_bf16(arr) else str(arr.dtype)
+
+
+def _write_leaf(path: str, arr: np.ndarray) -> None:
+    if not is_bf16(arr):
+        np.save(path, arr)
+        return
+    # the header np.save writes for ml_dtypes' bfloat16
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": "<V2", "fortran_order": False,
+                "shape": tuple(arr.shape)})
+        f.write(arr.tobytes())
 
 
 def save(directory: str, step: int, tree, extra: dict | None = None) -> str:
@@ -58,15 +89,15 @@ def save(directory: str, step: int, tree, extra: dict | None = None) -> str:
     final = os.path.join(directory, f"step_{step:010d}")
     tmp = tempfile.mkdtemp(prefix=".ckpt_tmp_", dir=directory)
     try:
-        leaves = _flatten_with_paths(tree)
+        leaves = flatten_with_paths(tree)
         index = {}
         h = hashlib.sha256()
         for name, leaf in sorted(leaves.items()):
             arr = to_host(leaf)
             fname = hashlib.md5(name.encode()).hexdigest() + ".npy"
-            np.save(os.path.join(tmp, fname), arr)
+            _write_leaf(os.path.join(tmp, fname), arr)
             index[name] = {"file": fname, "shape": list(arr.shape),
-                           "dtype": str(arr.dtype)}
+                           "dtype": _dtype_name(arr)}
             h.update(name.encode())
             h.update(arr.tobytes()[:4096])
         manifest = {"step": step, "index": index,
@@ -97,7 +128,7 @@ def available_steps(directory: str) -> list[int]:
 def restore_arrays(directory: str, step: int,
                    verify: bool = False) -> tuple[dict, dict]:
     """Load checkpoint ``step`` as a flat ``{leaf-path: np.ndarray}`` dict
-    and its ``extra``.
+    and its ``extra`` (a bf16 leaf as ``V2`` records: ``from_host``).
 
     Shapes and dtypes come from the manifest.  ``verify=True`` recomputes
     the payload digest (the formula of :func:`save`) and cross-checks every
@@ -117,7 +148,7 @@ def restore_arrays(directory: str, step: int,
             raise ValueError(f"checkpoint {path}: unreadable leaf {name}: "
                              f"{e}") from e
         if verify and (list(arr.shape) != entry["shape"]
-                       or str(arr.dtype) != entry["dtype"]):
+                       or _dtype_name(arr) != entry["dtype"]):
             raise ValueError(f"checkpoint {path}: leaf {name} has "
                              f"{arr.shape}/{arr.dtype}, manifest says "
                              f"{entry['shape']}/{entry['dtype']}")
@@ -130,5 +161,35 @@ def restore_arrays(directory: str, step: int,
     return arrays, manifest["extra"]
 
 
-__all__ = ["path_to_str", "to_host", "save", "available_steps",
-           "restore_arrays"]
+def restore(directory: str, step: int, like_tree, device=None):
+    """Load checkpoint ``step`` shaped like ``like_tree`` (tensors, on the
+    ``meta`` device too): each leaf found by its path, its shape checked,
+    cast to the like leaf's dtype and put on ``device`` (``None``: the like
+    leaf's own device).  -> (tree, extra)."""
+    path = os.path.join(directory, f"step_{step:010d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    index = manifest["index"]
+
+    def load(prefix, like):
+        if isinstance(like, dict):
+            return {k: load(prefix + (k,), v) for k, v in like.items()}
+        if isinstance(like, (list, tuple)):
+            return type(like)(load(prefix + (i,), v)
+                              for i, v in enumerate(like))
+        name = path_to_str(prefix)
+        if name not in index:
+            raise KeyError(f"checkpoint missing leaf {name}")
+        arr = np.load(os.path.join(path, index[name]["file"]))
+        want = tuple(like.shape)
+        if tuple(arr.shape) != want:
+            raise ValueError(f"shape mismatch for {name}: "
+                             f"{arr.shape} vs {want}")
+        return from_host(arr).to(device=device or like.device,
+                                 dtype=like.dtype)
+
+    return load((), like_tree), manifest["extra"]
+
+
+__all__ = ["path_to_str", "is_bf16", "to_host", "from_host", "save",
+           "available_steps", "restore_arrays", "restore"]

@@ -1,6 +1,7 @@
 """Checkpoint manager: asynchronous writes, retention, resume and a
-failure-injection hook (port of ``repro/checkpoint/manager.py``:
-``suggest_interval`` and ``CheckpointManager``).
+failure-injection hook, and a step-time watchdog (port of
+``repro/checkpoint/manager.py``: ``suggest_interval``,
+``CheckpointManager`` and ``StragglerMonitor``).
 
 At scale the checkpoint cadence is the fault-tolerance budget: with
 MTBF_cluster = MTBF_node / N, the optimal interval is
@@ -21,7 +22,10 @@ import os
 import queue
 import shutil
 import threading
+import time
 from typing import Callable, Optional
+
+import numpy as np
 
 from repro_torch.checkpoint import ckpt
 
@@ -111,6 +115,16 @@ class CheckpointManager:
         steps = ckpt.available_steps(self.directory)
         return steps[-1] if steps else None
 
+    def restore_latest(self, like_tree, device=None):
+        """The newest checkpoint shaped like ``like_tree`` (``ckpt.restore``)
+        -> ``(step, tree, extra)``, or ``(None, None, {})`` when there is
+        none."""
+        step = self.latest_step()
+        if step is None:
+            return None, None, {}
+        tree, extra = ckpt.restore(self.directory, step, like_tree, device)
+        return step, tree, extra
+
     def restore_latest_arrays(self, verify: bool = True,
                               skipped: list | None = None):
         """Newest checkpoint as a flat ``{leaf-path: array}`` dict, walking
@@ -130,4 +144,34 @@ class CheckpointManager:
         return None, None, {}
 
 
-__all__ = ["suggest_interval", "CheckpointManager"]
+class StragglerMonitor:
+    """Step-time watchdog: records an event for every step slower than
+    ``threshold`` x the running median of the last ``window`` steps (after
+    the first 5).  The caller ends a step once its work is done (on the
+    card: after a synchronize), so a step's time is its device time too."""
+
+    def __init__(self, threshold: float = 2.0, window: int = 50):
+        self.threshold = threshold
+        self.window = window
+        self.times: list[float] = []
+        self.events: list[tuple[int, float, float]] = []
+        self._t0: Optional[float] = None
+        self._step = 0
+
+    def start_step(self, step: int):
+        self._step = step
+        self._t0 = time.perf_counter()
+
+    def end_step(self) -> Optional[float]:
+        if self._t0 is None:
+            return None
+        dt = time.perf_counter() - self._t0
+        med = float(np.median(self.times[-self.window:])) if self.times \
+            else dt
+        self.times.append(dt)
+        if len(self.times) > 5 and dt > self.threshold * med:
+            self.events.append((self._step, dt, med))
+        return dt
+
+
+__all__ = ["suggest_interval", "CheckpointManager", "StragglerMonitor"]

@@ -8,6 +8,9 @@ reference's arrays), so this module needs nothing of the reference:
 * ``bucketed_ell_from_reference``: a ``BucketedELL``'s per-bucket
   ``(cols, vals, row_ids, num_rows, width)``.
 * ``lm_params_from_reference``: an LM's parameter tree.
+
+and back: ``lm_params_to_reference`` stacks the port's per-layer tree into
+the reference's layout, the one training keeps (``repro_torch.train``).
 """
 
 from __future__ import annotations
@@ -104,43 +107,30 @@ def tree_from_flat(flat: Mapping, prefix: str = "") -> dict:
     return listify(tree)
 
 
-def lm_params_from_reference(params: Mapping, cfg, device=None) -> dict:
-    """The reference's LM parameter tree (``repro.models.lm.init_params``;
-    its leaves as numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``)
-    -> the port's (``repro_torch.models.lm``), on ``device`` (``None``:
-    the card), bit for bit.
+def _stack_layers(layers):
+    """One tree shaped like ``layers[0]`` whose leaves are that leaf's
+    layers stacked."""
+    first = layers[0]
+    if isinstance(first, Mapping):
+        return {k: _stack_layers([layer[k] for layer in layers])
+                for k in first}
+    return torch.stack(list(layers))
 
-    The reference stacks a scanned stack's layers ``[L, ...]`` under
-    ``params["layers"]`` (an MoE layer's experts ``[L, E, D, F]``), and a
-    period-scanned hybrid's as ``{"period": (stack_j [n_per, ...] for each
-    pattern position j), "tail": [...]}``, where layer ``i * len(period) +
-    j`` is ``period[j][i]`` and the tail follows the periods.  The port
-    keeps one dict a layer, so the stacks are split in that order (a list
-    of per-layer dicts is taken as it is).  Every leaf must have the port's
-    shape and dtype (the router and the SSM and RG-LRU gates are f32 beside
-    bf16 weights).  Both packages keep every matrix ``[d_in, d_out]`` and
-    apply it as ``x @ W``, so nothing is transposed.  A tied head is the
-    embedding's transpose in both and has no ``head`` entry; an untied one
-    must have it.
-    """
-    from repro_torch.models.lm import abstract_params
 
-    device = resolve_device(device)
-    want = abstract_params(cfg)
-    if cfg.tie_embeddings and "head" in params:
-        raise ValueError(f"{cfg.name} ties its head to the embedding, but "
-                         f"the tree has a 'head' entry")
-    if set(params) != set(want):
-        raise ValueError(f"parameter tree keys {sorted(params)}, expected "
-                         f"{sorted(want)}")
-
+def unstack_layers(params: Mapping, cfg) -> dict:
+    """The reference's layout -> the port's: the same leaves (numpy arrays
+    or tensors, split along the first dim as views, not copied) with
+    ``params["layers"]`` a list of one dict a layer.  A tensor is split by
+    ``unbind``, whose backward stacks the layers' gradients into one
+    tensor.  No checks; see ``lm_params_from_reference``."""
     def leaf_map(tree, fn):
         if isinstance(tree, Mapping):
             return {k: leaf_map(v, fn) for k, v in tree.items()}
         return fn(tree)
 
     def unstack(stack, n):
-        return [leaf_map(stack, lambda a, i=i: np.asarray(a)[i])
+        split = leaf_map(stack, list)    # a tensor iterates by ``unbind``
+        return [leaf_map(split, lambda parts, i=i: parts[i])
                 for i in range(n)]
 
     layers = params["layers"]
@@ -157,10 +147,72 @@ def lm_params_from_reference(params: Mapping, cfg, device=None) -> dict:
                   for j in range(len(period))] + list(layers["tail"])
     elif isinstance(layers, Mapping):             # stacked [L, ...]
         layers = unstack(layers, cfg.num_layers)
+    tree = {k: v for k, v in params.items() if k != "layers"}
+    tree["layers"] = list(layers)
+    return tree
+
+
+def lm_params_to_reference(params: Mapping, cfg) -> dict:
+    """The port's LM tree (``repro_torch.models.lm``'s parameters, or a
+    tree shaped like them such as their gradients) -> the reference's
+    layout, the inverse of ``lm_params_from_reference``'s unstacking: a
+    scanned stack's layers stacked ``[L, ...]`` under ``"layers"``, a
+    period-scanned hybrid's as ``{"period": (stack_j [n_per, ...] for each
+    pattern position j), "tail": [...]}``, any other per-layer list kept.
+    Leaves stay tensors on their device, each stack a new one."""
+    from repro_torch.models.lm import stacked
+
+    layers = list(params["layers"])
     if len(layers) != cfg.num_layers:
         raise ValueError(f"{len(layers)} layers, expected {cfg.num_layers}")
     tree = {k: v for k, v in params.items() if k != "layers"}
-    tree["layers"] = list(layers)
+    if stacked(cfg):
+        tree["layers"] = _stack_layers(layers)
+    elif cfg.use_period_scan:
+        period, n_per, _ = cfg.period_info
+        plen = len(period)
+        tree["layers"] = {
+            "period": tuple(_stack_layers(layers[j:n_per * plen:plen])
+                            for j in range(plen)),
+            "tail": layers[n_per * plen:]}
+    else:
+        tree["layers"] = layers
+    return tree
+
+
+def lm_params_from_reference(params: Mapping, cfg, device=None) -> dict:
+    """The reference's LM parameter tree (``repro.models.lm.init_params``;
+    its leaves as numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``)
+    -> the port's (``repro_torch.models.lm``), on ``device``
+    (``None``: the card), bit for bit.
+
+    The reference stacks a scanned stack's layers ``[L, ...]`` under
+    ``params["layers"]`` (an MoE layer's experts ``[L, E, D, F]``), and a
+    period-scanned hybrid's as ``{"period": (stack_j [n_per, ...] for each
+    pattern position j), "tail": [...]}``, where layer ``i * len(period) +
+    j`` is ``period[j][i]`` and the tail follows the periods.  The port
+    keeps one dict a layer, so the stacks are split in that order (a list
+    of per-layer dicts is taken as it is).  Every leaf must have the port's
+    shape and dtype (the router and the SSM and RG-LRU gates are f32 beside
+    bf16 weights).  Both packages keep every matrix ``[d_in, d_out]`` and apply it as
+    ``x @ W``, so nothing is transposed.  A tied head is the embedding's
+    transpose in both and has no ``head`` entry; an untied one must have
+    it.
+    """
+    from repro_torch.models.lm import abstract_params
+
+    device = resolve_device(device)
+    want = abstract_params(cfg)
+    if cfg.tie_embeddings and "head" in params:
+        raise ValueError(f"{cfg.name} ties its head to the embedding, but "
+                         f"the tree has a 'head' entry")
+    if set(params) != set(want):
+        raise ValueError(f"parameter tree keys {sorted(params)}, expected "
+                         f"{sorted(want)}")
+    tree = unstack_layers(params, cfg)
+    if len(tree["layers"]) != cfg.num_layers:
+        raise ValueError(f"{len(tree['layers'])} layers, expected "
+                         f"{cfg.num_layers}")
 
     def convert(got, shape_of):
         if isinstance(shape_of, torch.Tensor):
@@ -182,4 +234,5 @@ def lm_params_from_reference(params: Mapping, cfg, device=None) -> dict:
 
 
 __all__ = ["edge_list_from_reference", "bucketed_ell_from_reference",
-           "tree_from_flat", "lm_params_from_reference"]
+           "tree_from_flat", "unstack_layers",
+           "lm_params_to_reference", "lm_params_from_reference"]

@@ -30,6 +30,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -157,18 +158,6 @@ def tree_size_from_param_count(cfg: ModelConfig) -> int:
     return size - n_attn * d
 
 
-def param_tensors(params: dict):
-    """Every tensor of a parameter tree, in a fixed order."""
-    if isinstance(params, torch.Tensor):
-        yield params
-    elif isinstance(params, dict):
-        for key in sorted(params):
-            yield from param_tensors(params[key])
-    else:
-        for item in params:
-            yield from param_tensors(item)
-
-
 # ---------------------------------------------------------------------------
 # one block
 # ---------------------------------------------------------------------------
@@ -226,6 +215,46 @@ def _zero_aux(cfg: ModelConfig, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# remat
+# ---------------------------------------------------------------------------
+
+def remat_groups(cfg: ModelConfig) -> list:
+    """The runs of layers that train mode checkpoints as one, with each
+    run's policy, where the reference puts its ``jax.checkpoint``: each
+    layer of a scanned stack with ``cfg.remat`` ("dots" saves the outputs
+    of the plain matrix products), each period of a period-scanned hybrid
+    in full and its tail layers not at all, and each layer of any other
+    per-layer list in full."""
+    n = cfg.num_layers
+    if stacked(cfg):
+        return [([i], cfg.remat) for i in range(n)]
+    if cfg.use_period_scan:
+        period, n_per, _ = cfg.period_info
+        plen = len(period)
+        return ([(list(range(i * plen, (i + 1) * plen)), "full")
+                 for i in range(n_per)]
+                + [([i], "none") for i in range(n_per * plen, n)])
+    return [([i], "full") for i in range(n)]
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep what a 2-D matrix
+    product (``x @ W``, folded to ``mm``) returns, recompute the rest
+    (batched ``bmm`` included)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op == torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_dots():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+# ---------------------------------------------------------------------------
 # full forward (train / prefill)
 # ---------------------------------------------------------------------------
 
@@ -238,21 +267,43 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, *,
     mode == 'prefill' (defaults to the prefill length, or the window for
     local attention; pass the decode horizon to pre-allocate room).
     ``aux``: the MoE layers' ``load_balance_loss``, ``router_z_loss`` and
-    ``drop_fraction``, each summed over the layers (empty without MoE)."""
+    ``drop_fraction``, each summed over the layers (empty without MoE).
+    In train mode with autograd recording, ``cfg.remat`` checkpoints the
+    layers as ``remat_groups`` says: less memory, the same numbers."""
     assert mode in ("train", "prefill")
     check_supported(cfg)
     x, positions, _ = embed_inputs(params, batch, cfg, params["embed"])
     rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta,
                        cfg.rope)
     aux_total = _zero_aux(cfg, x.device)
+
+    def run_layers(idx, x):
+        caches, auxes = [], []
+        for i in idx:
+            x, new_cache, aux = _apply_block(
+                params["layers"][i], x, positions, cfg, cfg.layer_pattern[i],
+                mode=mode, attn_impl=attn_impl, chunk=chunk,
+                cache_len=cache_len, rope=rope)
+            caches.append(new_cache)
+            auxes.append(aux)
+        return x, caches, auxes
+
     caches = []
-    for lp, layer_type in zip(params["layers"], cfg.layer_pattern):
-        x, new_cache, aux = _apply_block(
-            lp, x, positions, cfg, layer_type, mode=mode,
-            attn_impl=attn_impl, chunk=chunk, cache_len=cache_len, rope=rope)
-        caches.append(new_cache)
-        for k in aux_total:
-            aux_total[k] = aux_total[k] + aux.get(k, 0.0)
+    remat = mode == "train" and cfg.remat != "none" \
+        and torch.is_grad_enabled()
+    groups = remat_groups(cfg) if remat \
+        else [(list(range(cfg.num_layers)), "none")]
+    for idx, policy in groups:
+        if policy == "none":
+            x, group_caches, auxes = run_layers(idx, x)
+        else:
+            x, group_caches, auxes = checkpoint(
+                run_layers, idx, x, use_reentrant=False,
+                **({"context_fn": _save_dots} if policy == "dots" else {}))
+        caches.extend(group_caches)
+        for aux in auxes:
+            for k in aux_total:
+                aux_total[k] = aux_total[k] + aux.get(k, 0.0)
     if mode != "prefill":
         caches = None
     elif stacked(cfg):
@@ -368,6 +419,7 @@ def decode_step(params: dict, tokens_t: torch.Tensor, caches, position,
 
 
 __all__ = ["PORTED", "AUX_KEYS", "check_supported", "stacked", "init_params",
-           "abstract_params", "tree_size_from_param_count", "param_tensors",
-           "forward", "init_caches", "layer_cache", "cache_leaves",
-           "attention_cache_len", "check_position", "decode_step"]
+           "abstract_params", "tree_size_from_param_count",
+           "remat_groups", "forward", "init_caches", "layer_cache",
+           "cache_leaves", "attention_cache_len", "check_position",
+           "decode_step"]

@@ -113,7 +113,8 @@ def ssm_forward(params: dict, u: torch.Tensor, cfg: ModelConfig, *,
     # mask BEFORE exp: the upper triangle has positive exponents (overflow)
     decay = torch.exp(log_decay.masked_fill_(~tri[None, None, :, :, None],
                                              float("-inf")))
-    g = decay.mul_(cb[..., None])                       # [B,nc,Q,Q,H]
+    # out of place: exp's backward reads its output
+    g = decay * cb[..., None]                           # [B,nc,Q,Q,H]
     dtx = xh * dtc[..., None]                           # [B,nc,Q,H,P]
     y_intra = torch.einsum("bcqsh,bcshp->bcqhp", g, dtx)
     del g, decay, log_decay

@@ -1,0 +1,1 @@
+"""Training: the optimizers and the train step (port of ``repro/train``)."""

@@ -33,6 +33,7 @@ from repro_torch.convert import lm_params_from_reference, tree_from_flat
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
 from repro_torch.models import lm
+from repro_torch.tree import tree_leaves
 
 DENSE = ("qwen3-0.6b", "chatglm3-6b", "granite-3-8b", "command-r-35b")
 # the MoE, SSM and hybrid configs (their tests: test_torch_moe.py,
@@ -113,7 +114,7 @@ def test_parameter_tree_shapes_at_full_size(name):
     want = jax.eval_shape(lambda: jlm.init_params(jax.random.PRNGKey(0),
                                                   jcfg))
     got = lm.abstract_params(cfg)
-    assert all(p.device.type == "meta" for p in lm.param_tensors(got))
+    assert all(p.device.type == "meta" for p in tree_leaves(got))
     assert len(got["layers"]) == cfg.num_layers
     flat_want = {"/".join(str(getattr(k, "key", getattr(k, "idx", k)))
                           for k in path): leaf
@@ -137,11 +138,11 @@ def test_parameter_tree_shapes_at_full_size(name):
         assert tuple(node.shape) == tuple(shape), key
         assert str(node.dtype).replace("torch.", "") == str(leaf.dtype), key
     copies = {"period": info[1] if info else 0, "tail": 1}
-    assert len(list(lm.param_tensors(got))) == sum(
+    assert len(list(tree_leaves(got))) == sum(
         (copies[k.split("/")[1]] if k.split("/")[1] in copies
          else cfg.num_layers) if k.startswith("layers/") else 1
         for k in flat_want)
-    n = sum(p.numel() for p in lm.param_tensors(got))
+    n = sum(p.numel() for p in tree_leaves(got))
     d, hd, pattern = cfg.d_model, cfg.resolved_head_dim, cfg.layer_pattern
     n_attn, n_ssm, n_rec = (pattern.count(k) for k in ("attn", "ssm", "rec"))
     heads = 1 if cfg.tie_embeddings else 2
@@ -216,17 +217,17 @@ def test_init_params_seeded_and_shaped():
     a = lm.init_params(cfg, 3, device="cpu")
     b = lm.init_params(cfg, 3, device="cpu")
     c = lm.init_params(cfg, 4, device="cpu")
-    ta, tb, tc = (list(lm.param_tensors(p)) for p in (a, b, c))
+    ta, tb, tc = (list(tree_leaves(p)) for p in (a, b, c))
     assert all(torch.equal(x, y) for x, y in zip(ta, tb))
     assert not all(torch.equal(x, y) for x, y in zip(ta, tc))
-    shapes = [tuple(p.shape) for p in lm.param_tensors(lm.abstract_params(
+    shapes = [tuple(p.shape) for p in tree_leaves(lm.abstract_params(
         cfg))]
     assert [tuple(p.shape) for p in ta] == shapes
     w = a["layers"][0]["mixer"]["wq"]
     assert float(w.abs().max()) <= 2.0 / cfg.d_model ** 0.5 + 1e-6
     gen = torch.Generator().manual_seed(3)
     d = lm.init_params(cfg, device="cpu", generator=gen)
-    assert all(torch.equal(x, y) for x, y in zip(ta, lm.param_tensors(d)))
+    assert all(torch.equal(x, y) for x, y in zip(ta, tree_leaves(d)))
 
 
 # ---------------------------------------------------------------------------
