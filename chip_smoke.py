@@ -74,7 +74,20 @@ paths on the paper's 10k-node SBM and on the ``cl-100k-1d8-l5`` stand-in
   peak memory, a falling loss, one step profiled), a few Adafactor steps,
   again with ``remat="full"`` (a lower peak) and at microbatches 2 against
   1, and ``repro_torch.launch.train`` SIGKILLed after an in-loop
-  checkpoint and resumed to an uninterrupted run's digest.
+  checkpoint and resumed to an uninterrupted run's digest;
+* the patch and frame frontends and training on a mesh (phase 17):
+  ``hubert-xlarge`` at its published widths and depth (the committed JAX
+  fixture, bf16 against f32 cut to 2 layers, a timed forward and AdamW
+  steps on ``encoder_batch_at`` frames with a falling loss);
+  ``qwen2-vl-72b`` at its published widths cut to 16 of 80 layers (the
+  fixture, a prefill of 256 patches and text then decode steps continuing
+  the M-RoPE ``t`` coordinate against a forward, bf16 against f32 at 2
+  layers, ``BatchedServer`` over token prompts); and one spawned NCCL rank
+  per visible card, up to four, running ``tools/lm_ranks.py``'s work on a
+  (data, model) mesh -- (2, 2), (1, 2) or (1, 1) -- with ``qwen3-0.6b`` at
+  full width: an f32 step cut to 2 layers against the one-card step, the
+  bf16 step timed, a checkpoint crossing meshes with an equal digest, an
+  int8 compressed all-reduce against the exact mean.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; phase 11 counts its own checks apart, phase 12 its
@@ -291,6 +304,30 @@ CUT_LAYERS, CUT_LR = 2, 1e-2
 CUT_LOGIT_REL = (6 * CUT_LAYERS + 2) * 2.0 ** -8
 CUT_GRAD_REL = (18 * CUT_LAYERS + 4) * 2.0 ** -8
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
+# Phase 17: the patch and frame frontends and the (data, model) mesh.  The
+# committed JAX fixtures (reduced, f32); hubert-xlarge's encoder steps (B x
+# S = 4 x 512 frames: 30-45 GB with its AdamW state by PERF.md's
+# reckoning, where 8 x 512 would need remat) on one batch at a cosine lr,
+# which must make the loss fall;
+# qwen2-vl-72b cut to VLM_LAYERS of 80 layers in bf16 (1.76 GB a layer and
+# 4.98 GB of embedding and head: ~33 GB, over 20 GB left free; all 80 need
+# the sharded serving layout) with B x (256 patches + VLM_TEXT tokens),
+# VLM_PREFILL_TEXT of them prefilled, and its server's slots, cache and
+# requests; the mesh ranks' arguments (``tools/lm_ranks.py``) and wait.
+FRONTEND_FIXTURES = {
+    "hubert-xlarge": "tests/torch_fixtures/lm_hubert_reduced.npz",
+    "qwen2-vl-72b": "tests/torch_fixtures/lm_qwen2vl_reduced.npz"}
+HUBERT_BATCH, HUBERT_SEQ, HUBERT_STEPS = 4, 512, 8
+HUBERT_LR, HUBERT_WARMUP = 1e-3, 2
+VLM_LAYERS, VLM_BATCH, VLM_TEXT, VLM_PREFILL_TEXT = 16, 2, 64, 32
+VLM_SLOTS, VLM_MAX_LEN, VLM_REQUESTS = 8, 64, 16
+VLM_PROMPT, VLM_NEW = (4, 12), (8, 16)
+# bf16 decode against a bf16 forward of the same weights: each run's walk
+# of 2^-8 over 6 roundings a layer (phase 14's BF16_REL at VLM_LAYERS),
+# the two runs' added
+VLM_BF16_PAIR_REL = 2 * 2.0 ** -8 * (6 * VLM_LAYERS) ** 0.5
+MESH_RANKS_MAX, MESH_WAIT_S = 4, 420
+MESH_ARGS = ["--steps", "6", "--batch", "8", "--seq", "512"]
 
 
 def say(line: str) -> None:
@@ -3778,14 +3815,17 @@ def bf16_step_against_f32(torch, cfg, batch, seed: int) -> dict:
     p0 = flatten_with_paths(p16)
     s_a = min(1.0, 1.0 / max(a["grad_norm"], 1e-9))
     s_b = min(1.0, 1.0 / max(b["grad_norm"], 1e-9))
-    grad_rel, upd, moved = {}, 0.0, 0
+    grad_rel, upd, moved, unused = {}, 0.0, 0, []
     for k, gb in b["g"].items():
         ga = a["g"][k].float()
         norm = float(gb.norm())
-        if not (norm > 0 and bool(torch.isfinite(ga).all())):
+        if norm == 0 and not bool(ga.any()):
+            unused.append(k)         # a leaf the loss does not reach
+        elif not (norm > 0 and bool(torch.isfinite(ga).all())):
             raise AssertionError(f"cut gradient {k}: f32 norm {norm}, "
                                  f"bf16 finite {bool(torch.isfinite(ga).all())}")
-        grad_rel[k] = float((ga - gb).norm()) / norm
+        else:
+            grad_rel[k] = float((ga - gb).norm()) / norm
         p1a, p1b = a["p1"][k].double(), b["p1"][k].double()
         bound = adamw_step_bound(ga.double() * s_a, gb.double() * s_b, p1a,
                                  p1b, CUT_LR, U_BF16)
@@ -3796,7 +3836,7 @@ def bf16_step_against_f32(torch, cfg, batch, seed: int) -> dict:
                grad_rel_median=float(np.median(list(grad_rel.values()))),
                grad_rel_bound=CUT_GRAD_REL, update_worst_over_bound=upd,
                elements=sum(v.numel() for v in b["p1"].values()),
-               elements_moved_bf16=moved)
+               elements_moved_bf16=moved, leaves_without_gradient=unused)
     if not grad_rel[worst] <= CUT_GRAD_REL:
         raise AssertionError(f"cut bf16 gradient {worst} off f32 by "
                              f"{grad_rel[worst]:.4g} of its norm > "
@@ -4092,6 +4132,379 @@ def train_phase(torch, card, seed: int = 0) -> dict:
         f"{c['killed_after_checkpoint']}, resumed to {c['steps']}: digest "
         f"equal ({c['bf16_leaves']} bf16 leaves); {out['seconds']:.1f} s")
     return out
+
+# ---------------------------------------------------------------------------
+# phase 17: the patch and frame frontends, and training on a mesh
+# ---------------------------------------------------------------------------
+
+def frontend_fixture_check(torch, arch) -> dict:
+    """The committed JAX fixture of ``arch`` reduced (f32): the port's
+    forward and, with a decode step, its prefill of the patches and the
+    first tokens then decode steps, on the card, within F32_REL.  -> the
+    errors over max|want|."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_reference, tree_from_flat
+    from repro_torch.models import lm
+
+    cfg = get_config(arch).reduced()
+    with np.load(os.path.join(REPO, FRONTEND_FIXTURES[arch])) as f:
+        fix = {k: f[k] for k in f.files}
+    params = lm_params_from_reference(tree_from_flat(fix, "param/"), cfg,
+                                      device=DEVICE)
+    batch = {k[len("batch/"):]: torch.from_numpy(v).to(DEVICE)
+             for k, v in fix.items() if k.startswith("batch/")}
+    out = {}
+    with torch.no_grad():
+        logits, _, _ = lm.forward(params, batch, cfg)
+        out["forward_rel_err"] = hold(torch, logits, torch.from_numpy(
+            fix["logits_forward"]), F32_REL)
+        if "logits_decode" in fix:
+            toks, n_p = batch["tokens"], cfg.frontend_tokens
+            half = int(fix["prefill_len"])
+            lg, caches, _ = lm.forward(
+                params, dict(batch, tokens=toks[:, :half]), cfg,
+                mode="prefill", cache_len=n_p + toks.shape[1])
+            outs = [lg[:, -1:]]
+            for i in range(half, toks.shape[1]):
+                lg, caches = lm.decode_step(params, toks[:, i:i + 1], caches,
+                                            n_p + i, cfg)
+                outs.append(lg)
+            out["decode_rel_err"] = hold(torch, torch.cat(outs, 1),
+                                         torch.from_numpy(
+                                             fix["logits_decode"]), F32_REL)
+    return out
+
+
+def hubert_phase(torch, seed: int = 0) -> dict:
+    """(a) ``hubert-xlarge`` at its published widths and depth: the
+    fixture; one bf16 step against f32 cut to ``CUT_LAYERS`` layers
+    (``bf16_step_against_f32``); at all 48 layers a timed forward and
+    ``HUBERT_STEPS`` AdamW steps on one batch of ``encoder_batch_at``
+    frames (p50, frames/s beside the FLOP bound, peak memory, a falling
+    loss)."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_to_reference, unstack_layers
+    from repro_torch.data.pipeline import DataConfig, encoder_batch_at
+    from repro_torch.models import lm
+    from repro_torch.train import loop
+    from repro_torch.train.optimizers import cosine_schedule, get_optimizer
+    from repro_torch.tree import tree_leaves
+
+    arch = "hubert-xlarge"
+    cfg = get_config(arch)
+    widths = (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+              cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size,
+              cfg.frontend, cfg.frontend_dim, cfg.causal, cfg.param_dtype)
+    if widths != (48, 1280, 16, 16, 80, 5120, 504, "frame", 512, False,
+                  "bfloat16"):
+        raise AssertionError(f"{arch} is not the published config: "
+                             f"{widths}")
+    out = {"fixture": frontend_fixture_check(torch, arch)}
+    b, s, steps = HUBERT_BATCH, HUBERT_SEQ, HUBERT_STEPS
+    dc = DataConfig(cfg.vocab_size, s, b, seed=seed)
+    batch = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in encoder_batch_at(dc, 0, cfg.frontend_dim).items()}
+    t0 = time.perf_counter()
+    out["cut"] = bf16_step_against_f32(torch, cfg, batch, seed)
+    out["cut"]["s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    params = lm_params_to_reference(lm.init_params(cfg, seed, device=DEVICE),
+                                    cfg)
+    n = sum(p.numel() for p in tree_leaves(params))
+    if n != lm.tree_size_from_param_count(cfg):
+        raise AssertionError(f"{n} parameter elements")
+    with torch.no_grad():
+        fwd = lambda: lm.forward(unstack_layers(params, cfg),  # noqa: E731
+                                 batch, cfg)[0]
+        logits = fwd()
+        if not bool(torch.isfinite(logits).all()) \
+                or tuple(logits.shape) != (b, s, cfg.padded_vocab):
+            raise AssertionError(f"hubert logits {tuple(logits.shape)}")
+        del logits
+        fwd_ms = gpu_ms(torch, fwd, reps=5, warmup=1,
+                        sleep_cycles=STEP_SLEEP_CYCLES)
+    opt = get_optimizer("adamw", cosine_schedule(HUBERT_LR, HUBERT_WARMUP,
+                                                 steps))
+    state = opt.init(params)
+    step = loop.make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    # one more step profiled: the device's busy time and the aten ops with
+    # the most device time
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step(params, state, batch)
+        torch.cuda.synchronize()
+    busy_us, records = device_busy(torch, prof)
+    ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                  for e in prof.key_averages()
+                  if e.key.startswith("aten::")
+                  and e.self_device_time_total > 0), key=lambda r: -r[1])
+    del params, state, prof
+    torch.cuda.empty_cache()
+    # encoder_batch_at draws a new label code at every step (ROADMAP.md
+    # R8), so what the frames carry is learnable within a batch only: the
+    # steps fit batch 0, and its loss must fall
+    if not all(np.isfinite(losses)) or not np.mean(losses[-3:]) \
+            < np.mean(losses[:3]):
+        raise AssertionError(f"hubert's loss did not fall: {losses}")
+    tokens = b * s
+    attn = 3 * 2 * 2 * b * cfg.num_heads * s * s * cfg.resolved_head_dim \
+        * cfg.num_layers                          # bidirectional: all of S^2
+    flop = 6 * n * tokens + attn
+    bound_ms = flop / BF16_OPS_PER_S * 1e3
+    fwd_bound_ms = (2 * n * tokens + attn / 3) / BF16_OPS_PER_S * 1e3
+    p50 = float(np.percentile(times[1:], 50))
+    out.update(param_elements=n, layers=cfg.num_layers, batch=b, seq=s,
+               steps=steps,
+               forward_ms=fwd_ms, forward_bound_ms=fwd_bound_ms,
+               step_ms=times, step_ms_p50=p50,
+               frames_per_s=tokens / (p50 / 1e3), bound_ms=bound_ms,
+               bound_by="operations", bound_share=bound_ms / p50,
+               peak_bytes=peak, losses=losses,
+               profiled_step={"device_busy_ms": busy_us / 1e3,
+                              "device_records": records,
+                              "top_aten_ops_ms": [[k, round(ms, 3), c]
+                                                  for k, ms, c in ops[:10]]})
+    return out
+
+
+def vlm_phase(torch, seed: int = 0) -> dict:
+    """(b) ``qwen2-vl-72b`` at its published widths cut to ``VLM_LAYERS``
+    layers, bf16: the fixture; a prefill of 256 patches and
+    ``VLM_PREFILL_TEXT`` tokens, then decode steps continuing the text
+    ``t`` coordinate, against one forward of the whole sequence; the same
+    at 2 layers in bf16 and in f32 against the f32 forward; and
+    ``BatchedServer`` over token prompts (tokens/s, a call's p50, one
+    request's logits against a forward at its M-RoPE positions)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import frontends, lm
+    from repro_torch.serve.batching import BatchedServer, Request
+    from repro_torch.tree import tree_leaves, tree_map
+
+    arch = "qwen2-vl-72b"
+    full = get_config(arch)
+    widths = (full.num_layers, full.d_model, full.num_heads,
+              full.num_kv_heads, full.resolved_head_dim, full.d_ff,
+              full.vocab_size, full.frontend, full.frontend_dim,
+              full.frontend_tokens, full.rope, full.param_dtype)
+    if widths != (80, 8192, 64, 8, 128, 29_568, 152_064, "patch", 1176, 256,
+                  "mrope", "bfloat16"):
+        raise AssertionError(f"{arch} is not the published config: "
+                             f"{widths}")
+    out = {"fixture": frontend_fixture_check(torch, arch)}
+    rng = np.random.default_rng(seed)
+    cfg = dataclasses.replace(full, num_layers=VLM_LAYERS)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed, device=DEVICE)
+    torch.cuda.synchronize()
+    nbytes = tree_bytes(params)
+    out["init_s"] = time.perf_counter() - t0
+    out["param_bytes"] = nbytes
+    out["free_bytes_after_init"] = torch.cuda.mem_get_info()[0]
+    n_p, text = full.frontend_tokens, VLM_TEXT
+    batch = {"tokens": torch.from_numpy(rng.integers(
+                 0, full.vocab_size, (VLM_BATCH, text)).astype(np.int32))
+             .to(DEVICE),
+             "patches": torch.from_numpy(rng.standard_normal(
+                 (VLM_BATCH, n_p, full.frontend_dim)).astype(np.float32))
+             .to(DEVICE)}
+
+    def prefill_decode(p, c):
+        toks = batch["tokens"]
+        lg, caches, _ = lm.forward(
+            p, dict(batch, tokens=toks[:, :VLM_PREFILL_TEXT]), c,
+            mode="prefill", cache_len=n_p + text)
+        outs = [lg[:, -1:]]
+        for i in range(VLM_PREFILL_TEXT, text):
+            lg, caches = lm.decode_step(p, toks[:, i:i + 1], caches, n_p + i,
+                                        c)
+            outs.append(lg)
+        return torch.cat(outs, 1)
+
+    at = slice(n_p + VLM_PREFILL_TEXT - 1, n_p + text)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        fwd16, _, _ = lm.forward(params, batch, cfg)
+        torch.cuda.synchronize()
+        out["forward_s"] = time.perf_counter() - t0
+        dec16 = prefill_decode(params, cfg)
+        out["decode_vs_forward_rel_err"] = hold(
+            torch, dec16, fwd16[:, at], VLM_BF16_PAIR_REL)
+        del fwd16, dec16
+        # two layers: bf16 and an f32 copy of the same weights
+        cut = dataclasses.replace(cfg, num_layers=CUT_LAYERS)
+        p2 = dict(params, layers=params["layers"][:CUT_LAYERS])
+        cut32 = dataclasses.replace(cut, param_dtype="float32",
+                                    compute_dtype="float32")
+        p32 = tree_map(lambda t: t.float(), p2)
+        fwd32, _, _ = lm.forward(p32, batch, cut32)
+        want = fwd32[:, at]
+        del fwd32
+        out["cut_f32_decode_rel_err"] = hold(
+            torch, prefill_decode(p32, cut32), want, F32_REL)
+        out["cut_bf16_decode_vs_f32_rel_err"] = hold(
+            torch, prefill_decode(p2, cut), want, CUT_LOGIT_REL)
+        del p32, p2, want
+    torch.cuda.empty_cache()
+
+    # the server over token prompts
+    server = BatchedServer(params, cfg, VLM_SLOTS, VLM_MAX_LEN, seed=seed,
+                           device=DEVICE)
+    rec, call_ms = {}, []
+    orig = server._decode
+
+    def wrapped(p, c, t, pos, rows):
+        t0 = time.perf_counter()
+        logits, c = orig(p, c, t, pos, rows)
+        torch.cuda.synchronize()
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+        for slot in rows:
+            req = server.slot_req[slot]
+            if req.uid == 0 and pos >= len(req.prompt) - 1:
+                rec[pos] = logits[slot, 0].clone()
+        return logits, c
+
+    server._decode = wrapped
+    reqs = [Request(uid=i, prompt=rng.integers(
+                0, full.vocab_size, int(rng.integers(VLM_PROMPT[0],
+                                                     VLM_PROMPT[1] + 1)))
+                .astype(np.int32),
+                max_new_tokens=int(rng.integers(VLM_NEW[0], VLM_NEW[1] + 1)))
+            for i in range(VLM_REQUESTS)]
+    for r in reqs:
+        server.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = server.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = sum(len(r.output) for r in done)
+    if len(done) != VLM_REQUESTS or any(max(r.output) >= full.vocab_size
+                                        for r in done):
+        raise AssertionError("the vlm server did not finish cleanly")
+    # request 0 against a forward over its tokens at the positions the
+    # server numbered them (the text t after a 256-patch grid)
+    r0 = next(r for r in done if r.uid == 0)
+    seq = np.concatenate([r0.prompt, np.asarray(r0.output, np.int32)])
+    pos = torch.arange(len(seq), device=DEVICE)
+    t_coord = frontends.text_mrope_t0(n_p) + pos - n_p
+    with torch.no_grad():
+        want, _, _ = lm.forward(params, {
+            "tokens": torch.from_numpy(seq)[None].to(DEVICE),
+            "patches": torch.zeros((1, 0, full.frontend_dim),
+                                   device=DEVICE),
+            "mrope_positions": t_coord[None, :, None].expand(1, -1, 3)},
+            cfg)
+    p0 = len(r0.prompt) - 1
+    got = torch.stack([rec[p0 + j] for j in range(len(r0.output))])
+    server_err = hold(torch, got, want[0, p0:p0 + len(r0.output)],
+                      VLM_BF16_PAIR_REL)
+    lat = np.asarray(call_ms)
+    out["server"] = {"requests": VLM_REQUESTS, "slots": VLM_SLOTS,
+                     "tokens_out": tokens, "wall_s": wall,
+                     "tokens_per_s": tokens / wall,
+                     "decode_call_ms_p50": float(np.percentile(lat, 50)),
+                     "decode_call_ms_p95": float(np.percentile(lat, 95)),
+                     "decode_calls": len(call_ms),
+                     "request0_rel_err_vs_forward": server_err,
+                     "bytes_bound_ms_a_call": nbytes / HBM_BYTES_PER_S * 1e3}
+    out["layers"] = VLM_LAYERS
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del server, params, want, got, rec
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_phase(torch) -> dict:
+    """(c) ``tools/lm_ranks.py``'s work in one spawned NCCL rank per visible
+    card, up to ``MESH_RANKS_MAX``: qwen3-0.6b at full width and depth on
+    a (data, model) mesh -- (2, 2) on four cards, (1, 2) on two, (1, 1) on
+    one.  -> rank 0's numbers."""
+    import torch.multiprocessing as mp
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import lm_ranks
+
+    world = min(torch.cuda.device_count(), MESH_RANKS_MAX)
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "rank0.json")
+        ctx = mp.start_processes(
+            lm_ranks.spawned_rank,
+            args=(world, os.path.join(tmp, "store"),
+                  MESH_ARGS + ["--ckpt-dir", os.path.join(tmp, "ckpt")],
+                  out_path),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + MESH_WAIT_S
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() >= deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise AssertionError(f"{world} mesh ranks did not finish in "
+                                     f"{MESH_WAIT_S} s")
+        with open(out_path) as f:
+            out = json.load(f)
+    out["summary"] = lm_ranks.summary(out)
+    return out
+
+
+def frontends_mesh_phase(torch, card) -> dict:
+    """Phase 17: (a) ``hubert_phase``, (b) ``vlm_phase``, (c)
+    ``mesh_phase``.  Prints one line; returns the numbers."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    out = {}
+    for key, fn in (("hubert", hubert_phase), ("vlm", vlm_phase)):
+        t0 = time.perf_counter()
+        out[key] = fn(torch)
+        out[key]["s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["mesh"] = mesh_phase(torch)
+    out["mesh"]["s"] = time.perf_counter() - t0
+    h, v, m = out["hubert"], out["vlm"], out["mesh"]
+    hc, vs = h["cut"], v["server"]
+    say(f"phase 17 frontends and the mesh ({card}): (a) hubert-xlarge "
+        f"{h['param_elements']:,} elements: fixture "
+        f"{h['fixture']['forward_rel_err']:.3g}; cut to {CUT_LAYERS} layers "
+        f"bf16 vs f32 logits {hc['logit_max_abs_diff']:.4g} (bound "
+        f"{hc['logit_bound']:.4g}), gradients worst "
+        f"{hc['grad_rel_worst']:.4g} of the f32 norm (bound "
+        f"{CUT_GRAD_REL:.4g}); {h['layers']} layers B={h['batch']} x "
+        f"S={h['seq']} "
+        f"frames: forward {h['forward_ms']:.1f} ms, AdamW step p50 "
+        f"{h['step_ms_p50']:.1f} ms, {h['frames_per_s']:,.0f} frames/s, "
+        f"FLOP bound {h['bound_ms']:.2f} ms (share {h['bound_share']:.3f}), "
+        f"a profiled step's device busy "
+        f"{h['profiled_step']['device_busy_ms']:.1f} ms, peak "
+        f"{h['peak_bytes'] / 1e9:.2f} GB, loss {h['losses'][0]:.4f} -> "
+        f"{h['losses'][-1]:.4f}; (b) qwen2-vl-72b cut to {v['layers']} of "
+        f"80 layers ({v['param_bytes'] / 1e9:.2f} GB bf16): fixture "
+        f"forward {v['fixture']['forward_rel_err']:.3g}, decode "
+        f"{v['fixture']['decode_rel_err']:.3g}; 256 patches + "
+        f"{VLM_PREFILL_TEXT} tokens prefilled, decode vs forward "
+        f"{v['decode_vs_forward_rel_err']:.3g} (bound "
+        f"{VLM_BF16_PAIR_REL:.4f}); at {CUT_LAYERS} layers f32 decode "
+        f"{v['cut_f32_decode_rel_err']:.3g}, bf16 vs f32 "
+        f"{v['cut_bf16_decode_vs_f32_rel_err']:.3g} (bound "
+        f"{CUT_LOGIT_REL:.4f}); server {vs['tokens_out']} tokens "
+        f"{vs['tokens_per_s']:.1f} tok/s, call p50 "
+        f"{vs['decode_call_ms_p50']:.2f} ms (bytes bound "
+        f"{vs['bytes_bound_ms_a_call']:.2f} ms), request 0 vs forward "
+        f"{vs['request0_rel_err_vs_forward']:.3g}; (c) {m['summary']}")
+    return out
+
 
 
 def main() -> int:
@@ -4799,6 +5212,10 @@ def main() -> int:
     # -- phase 16: training at full width ----------------------------------------
     torch.cuda.empty_cache()
     report["training"] = train_phase(torch, card)
+
+    # -- phase 17: the patch and frame frontends, training on a mesh ----------
+    torch.cuda.empty_cache()
+    report["frontends_mesh"] = frontends_mesh_phase(torch, card)
 
     # -- phase 7: the kernels line -------------------------------------------
     # Slice 1's kernels: ms per fit of cl-100k-1d8-l5.  The retrieval

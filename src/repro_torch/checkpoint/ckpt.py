@@ -1,6 +1,7 @@
 """Checkpoint save and restore (port of ``repro/checkpoint/ckpt.py``:
-``save``, ``available_steps``, ``restore_arrays`` and ``restore`` without
-shardings).
+``save``, ``available_steps``, ``restore_arrays`` and ``restore``, sharded
+trees included: a sharded save gathers each leaf and rank 0 writes it, and
+a restore with shardings keeps this rank's block).
 
 Layout, the reference's unchanged so one directory serves both packages:
 ``<dir>/step_%010d/`` holds one ``.npy`` file per leaf, named by the md5 of
@@ -83,10 +84,38 @@ def _write_leaf(path: str, arr: np.ndarray) -> None:
         f.write(arr.tobytes())
 
 
-def save(directory: str, step: int, tree, extra: dict | None = None) -> str:
-    """Atomically write ``tree`` as checkpoint ``step_<N>``; returns path."""
-    os.makedirs(directory, exist_ok=True)
+def gather_to_host(tree, shardings: dict, mesh) -> dict:
+    """``{path: host array}`` of a sharded tree: each leaf, this rank's
+    block under ``shardings[path]``, all-gathered over the mesh and copied
+    to the host, one at a time in path order (every rank of the mesh
+    calls it)."""
+    from repro_torch.distributed.sharding import gather_leaf
+
+    leaves = flatten_with_paths(tree)
+    return {name: to_host(gather_leaf(leaves[name], shardings[name], mesh))
+            for name in sorted(leaves)}
+
+
+def save(directory: str, step: int, tree, extra: dict | None = None,
+         shardings: dict | None = None, mesh=None) -> str:
+    """Atomically write ``tree`` as checkpoint ``step_<N>``; returns path.
+
+    With ``shardings`` (``{path: spec}``, ``sharding.param_shardings``)
+    the leaves are this rank's blocks on ``mesh``: every rank calls
+    ``save``, each leaf is gathered (``gather_to_host``), rank 0 writes
+    them, and all ranks return once it has (a barrier).  The files,
+    manifest and digest are the bytes an unsharded save of the same
+    values writes."""
     final = os.path.join(directory, f"step_{step:010d}")
+    if shardings is not None:
+        import torch.distributed as dist
+
+        host = gather_to_host(tree, shardings, mesh)
+        if dist.get_rank() == 0:
+            save(directory, step, host, extra)
+        dist.barrier()
+        return final
+    os.makedirs(directory, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=".ckpt_tmp_", dir=directory)
     try:
         leaves = flatten_with_paths(tree)
@@ -161,11 +190,15 @@ def restore_arrays(directory: str, step: int,
     return arrays, manifest["extra"]
 
 
-def restore(directory: str, step: int, like_tree, device=None):
+def restore(directory: str, step: int, like_tree, device=None,
+            shardings: dict | None = None, mesh=None):
     """Load checkpoint ``step`` shaped like ``like_tree`` (tensors, on the
     ``meta`` device too): each leaf found by its path, its shape checked,
     cast to the like leaf's dtype and put on ``device`` (``None``: the like
-    leaf's own device).  -> (tree, extra)."""
+    leaf's own device).  With ``shardings`` (``{path: spec}``) each leaf
+    is cut to this rank's block on ``mesh`` before it goes to the device
+    (the elastic re-shard: the checkpoint may come from any mesh).
+    -> (tree, extra)."""
     path = os.path.join(directory, f"step_{step:010d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -185,11 +218,16 @@ def restore(directory: str, step: int, like_tree, device=None):
         if tuple(arr.shape) != want:
             raise ValueError(f"shape mismatch for {name}: "
                              f"{arr.shape} vs {want}")
-        return from_host(arr).to(device=device or like.device,
-                                 dtype=like.dtype)
+        leaf = from_host(arr).to(dtype=like.dtype)
+        if shardings is not None:
+            from repro_torch.distributed.sharding import shard_leaf
+
+            leaf = shard_leaf(leaf, shardings[name], mesh)
+        return leaf.to(device=device or like.device)
 
     return load((), like_tree), manifest["extra"]
 
 
-__all__ = ["path_to_str", "is_bf16", "to_host", "from_host", "save",
+__all__ = ["path_to_str", "is_bf16", "to_host", "from_host",
+           "gather_to_host", "save",
            "available_steps", "restore_arrays", "restore"]

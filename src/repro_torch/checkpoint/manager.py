@@ -96,9 +96,20 @@ class CheckpointManager:
         if force or (step > 0 and step % self.interval == 0):
             self.save_async(step, tree, extra)
 
-    def save_async(self, step: int, tree, extra: dict | None = None):
-        """Copy ``tree`` to the host now; write it on the writer thread."""
-        self._q.put((step, _host_tree(tree), extra or {}))
+    def save_async(self, step: int, tree, extra: dict | None = None,
+                   shardings: dict | None = None, mesh=None):
+        """Copy ``tree`` to the host now; write it on the writer thread.
+        With ``shardings`` the leaves are this rank's blocks on ``mesh``:
+        every rank calls this, the leaves are gathered here
+        (``ckpt.gather_to_host``), and rank 0 alone writes them."""
+        if shardings is None:
+            self._q.put((step, _host_tree(tree), extra or {}))
+            return
+        import torch.distributed as dist
+
+        host = ckpt.gather_to_host(tree, shardings, mesh)
+        if dist.get_rank() == 0:
+            self._q.put((step, host, extra or {}))
 
     def wait(self, raise_errors: bool = True):
         self._q.join()
@@ -115,14 +126,16 @@ class CheckpointManager:
         steps = ckpt.available_steps(self.directory)
         return steps[-1] if steps else None
 
-    def restore_latest(self, like_tree, device=None):
-        """The newest checkpoint shaped like ``like_tree`` (``ckpt.restore``)
-        -> ``(step, tree, extra)``, or ``(None, None, {})`` when there is
-        none."""
+    def restore_latest(self, like_tree, device=None,
+                       shardings: dict | None = None, mesh=None):
+        """The newest checkpoint shaped like ``like_tree`` (``ckpt.restore``,
+        with ``shardings`` this rank's blocks on ``mesh``) -> ``(step,
+        tree, extra)``, or ``(None, None, {})`` when there is none."""
         step = self.latest_step()
         if step is None:
             return None, None, {}
-        tree, extra = ckpt.restore(self.directory, step, like_tree, device)
+        tree, extra = ckpt.restore(self.directory, step, like_tree, device,
+                                   shardings=shardings, mesh=mesh)
         return step, tree, extra
 
     def restore_latest_arrays(self, verify: bool = True,

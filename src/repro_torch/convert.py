@@ -7,7 +7,9 @@ reference's arrays), so this module needs nothing of the reference:
   (padding tail included) with its ``num_nodes``/``num_edges``.
 * ``bucketed_ell_from_reference``: a ``BucketedELL``'s per-bucket
   ``(cols, vals, row_ids, num_rows, width)``.
-* ``lm_params_from_reference``: an LM's parameter tree.
+* ``lm_params_from_reference``: an LM's parameter tree (a patch or frame
+  frontend's ``frontend/proj`` leaf included), or a tree shaped like it
+  such as AdamW's moments.
 
 and back: ``lm_params_to_reference`` stacks the port's per-layer tree into
 the reference's layout, the one training keeps (``repro_torch.train``).

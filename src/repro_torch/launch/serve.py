@@ -6,10 +6,13 @@ prefill and batched decode through ``BatchedServer``, slot churn as
 requests finish at different lengths, and throughput accounting.  Runs on
 the card unless ``--device cpu`` is given.  ``--reduced`` (the default, as
 in the reference) serves the small same-family config; ``--no-reduced``
-serves the published one.  ``--arch`` takes every config with the token
-frontend: dense, MoE, SSM and hybrid.  A period-scanned hybrid (the
-published ``recurrentgemma-2b``) is refused by ``BatchedServer`` as in the
-reference; ``serve.decode.generate`` serves it.
+serves the published one.  ``--arch`` takes every config with a decode
+step: dense, MoE, SSM, hybrid and the vision-language ``qwen2-vl-72b``
+(over token prompts, its M-RoPE text ``t`` continuing after the patch grid
+as in the reference); the encoder-only ``hubert-xlarge`` exits, as in the
+reference.  A period-scanned hybrid (the published ``recurrentgemma-2b``)
+is refused by ``BatchedServer`` as in the reference;
+``serve.decode.generate`` serves it.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\

@@ -1,7 +1,10 @@
 """The LM backbone: init / forward / prefill / decode (port of
-``repro/models/lm.py``) for the families with the token frontend: dense and
-MoE decoders, the attention-free SSM stack (``family == "ssm"``) and the
-RG-LRU / local-attention hybrid (``"hybrid"``).
+``repro/models/lm.py``) for every family: dense and MoE decoders, the
+attention-free SSM stack (``family == "ssm"``), the RG-LRU /
+local-attention hybrid (``"hybrid"``), the vision-language decoder
+(``"vlm"``: projected patches prepended to the text, M-RoPE) and the
+encoder-only audio stack (``"audio"``: projected frames, bidirectional
+attention, no decode step).
 
 Structure per layer (pre-norm residual):
 
@@ -21,8 +24,10 @@ stacked by kind:
   hybrid                         a list of one cache a layer (its layers differ)
 
 ``forward`` returns the MoE layers' aux losses summed over the layers, as
-the reference's does.  The ``vlm`` and ``audio`` families raise
-``NotImplementedError`` naming their ROADMAP.md item.
+the reference's does.  Given ``shard`` (``repro_torch.distributed.
+tensor_parallel.ShardedLM``), ``forward`` runs on this rank's blocks of a
+(data, model) mesh: the hook gathers each layer's leaves at their use and
+wraps the tensor-parallel mixers and FFNs in their collectives.
 """
 
 from __future__ import annotations
@@ -39,29 +44,21 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import torch_dtype
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.frontends import check_frontend, embed_inputs
+from repro_torch.models.frontends import (embed_inputs, init_frontend,
+                                          text_mrope_t0)
 from repro_torch.models.layers import (embed_init, rms_norm, rope_tables,
                                        truncated_normal_init)
 from repro_torch.models.mlp import init_mlp, mlp_forward
 
-PORTED = ("dense", "moe", "ssm", "hybrid")
-# families not ported yet, by their ROADMAP.md section 1 item
-_LATER = {"vlm": "8e", "audio": "8e"}
+PORTED = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 AUX_KEYS = ("load_balance_loss", "router_z_loss", "drop_fraction")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a family ported so
-    far, with the token frontend."""
-    item = _LATER.get(cfg.family)
-    if item is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP.md section 1, item {item})")
+    """Raise ``NotImplementedError`` unless ``cfg`` is a known family."""
     if cfg.family not in PORTED:
         raise NotImplementedError(f"{cfg.name}: unknown family "
                                   f"{cfg.family!r}")
-    check_frontend(cfg)
 
 
 def stacked(cfg: ModelConfig) -> bool:
@@ -97,14 +94,17 @@ def _init_layer(gen, cfg: ModelConfig, layer_type: str, device) -> dict:
 
 def _build(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     dt = torch_dtype(cfg.param_dtype)
-    params: dict = {
-        "embed": embed_init(gen, (cfg.padded_vocab, cfg.d_model), dt,
-                            device)}
+    params: dict = {}
+    if cfg.vocab_size:
+        params["embed"] = embed_init(gen, (cfg.padded_vocab, cfg.d_model),
+                                     dt, device)
+    if cfg.frontend != "none":
+        params["frontend"] = init_frontend(gen, cfg, device)
     params["layers"] = [_init_layer(gen, cfg, t, device)
                         for t in cfg.layer_pattern]
     params["final_norm"] = torch.zeros((cfg.d_model,), dtype=dt,
                                        device=device)
-    if not cfg.tie_embeddings:
+    if cfg.vocab_size and not cfg.tie_embeddings:
         params["head"] = truncated_normal_init(
             gen, (cfg.d_model, cfg.padded_vocab), 1.0, dt, device)
     return params
@@ -115,7 +115,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
     """Random weights on ``device`` (``None``: the card), drawn from
     ``generator`` (default: a generator on the device seeded with
     ``seed``).  The embedding is [padded_vocab, D]; an untied head
-    [D, padded_vocab]; the router, the SSM's ``a_log`` / ``dt_bias`` /
+    [D, padded_vocab]; a patch or frame frontend's ``frontend/proj``
+    [frontend_dim, D]; the router, the SSM's ``a_log`` / ``dt_bias`` /
     ``d_skip`` and the RG-LRU's gates f32, as in the reference."""
     check_supported(cfg)
     device = resolve_device(device)
@@ -165,10 +166,14 @@ def tree_size_from_param_count(cfg: ModelConfig) -> int:
 def _apply_block(layer_params, x, positions, cfg: ModelConfig,
                  layer_type: str, *, mode: str, cache=None,
                  attn_impl: str = "auto", chunk: int = 512, decode_pos=None,
-                 cache_len=None, rows=None, rope=None):
-    """Returns (x, new_cache, aux)."""
+                 cache_len=None, rows=None, rope=None, tp=None):
+    """Returns (x, new_cache, aux).  ``tp``: a sharded layer's
+    tensor-parallel regions (``tensor_parallel.LayerRegions``): the mixer's
+    or the FFN's input enters its region and its output leaves it."""
     aux = {}
     h = rms_norm(x, layer_params["ln1"], cfg.norm_eps)
+    if tp is not None and tp.mixer:
+        h = tp.enter(h)
     prefill = mode == "prefill"
     if layer_type == "attn":
         if mode == "decode":
@@ -196,11 +201,15 @@ def _apply_block(layer_params, x, positions, cfg: ModelConfig,
                 layer_params["mixer"], h, cfg, return_state=prefill)
     else:
         raise ValueError(layer_type)
+    if tp is not None and tp.mixer:
+        y = tp.leave(y)
     x = x + y
     if layer_type != "ssm" and "ffn" in layer_params:
         h = rms_norm(x, layer_params["ln2"], cfg.norm_eps)
         if cfg.moe is not None:
             y, aux = moe_mod.moe_forward(layer_params["ffn"], h, cfg.moe)
+        elif tp is not None and tp.ffn:
+            y = tp.leave(mlp_forward(layer_params["ffn"], tp.enter(h)))
         else:
             y = mlp_forward(layer_params["ffn"], h)
         x = x + y
@@ -260,30 +269,43 @@ def _save_dots():
 
 def forward(params: dict, batch: dict, cfg: ModelConfig, *,
             mode: str = "train", attn_impl: str = "auto", chunk: int = 512,
-            cache_len: Optional[int] = None):
+            cache_len: Optional[int] = None, shard=None):
     """-> (logits [B, S, V_pad] f32, caches|None, aux dict).
 
-    ``batch["tokens"]`` [B, S] ints.  ``cache_len``: KV-cache capacity when
+    ``batch["tokens"]`` [B, S] ints; with the patch frontend also
+    ``batch["patches"]`` [B, n_patch, frontend_dim], whose slots come first
+    in the logits (and optional ``mrope_positions`` [B, S, 3]); with the
+    frame frontend ``batch["frames"]`` [B, S, frontend_dim] and no tokens
+    (``params`` then needs no ``embed``).  ``cache_len``: KV-cache capacity when
     mode == 'prefill' (defaults to the prefill length, or the window for
     local attention; pass the decode horizon to pre-allocate room).
     ``aux``: the MoE layers' ``load_balance_loss``, ``router_z_loss`` and
     ``drop_fraction``, each summed over the layers (empty without MoE).
     In train mode with autograd recording, ``cfg.remat`` checkpoints the
-    layers as ``remat_groups`` says: less memory, the same numbers."""
+    layers as ``remat_groups`` says: less memory, the same numbers.
+    ``shard``: run on this rank's blocks (module docstring); the logits are
+    then this rank's vocabulary columns when the head is vocab-parallel."""
     assert mode in ("train", "prefill")
     check_supported(cfg)
-    x, positions, _ = embed_inputs(params, batch, cfg, params["embed"])
+    if shard is None:
+        x, positions, mrope = embed_inputs(params, batch, cfg,
+                                           params.get("embed"))
+    else:
+        x, positions, mrope = shard.embed_inputs(params, batch)
     rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta,
-                       cfg.rope)
+                       cfg.rope, mrope)
     aux_total = _zero_aux(cfg, x.device)
 
     def run_layers(idx, x):
         caches, auxes = [], []
         for i in idx:
+            lp, lcfg, tp = params["layers"][i], cfg, None
+            if shard is not None:
+                lp, lcfg, tp = shard.layer(lp, cfg.layer_pattern[i])
             x, new_cache, aux = _apply_block(
-                params["layers"][i], x, positions, cfg, cfg.layer_pattern[i],
+                lp, x, positions, lcfg, cfg.layer_pattern[i],
                 mode=mode, attn_impl=attn_impl, chunk=chunk,
-                cache_len=cache_len, rope=rope)
+                cache_len=cache_len, rope=rope, tp=tp)
             caches.append(new_cache)
             auxes.append(aux)
         return x, caches, auxes
@@ -310,12 +332,17 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, *,
         caches = {name: torch.stack([c[name] for c in caches])
                   for name in caches[0]}
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _head(params, x, cfg), caches, aux_total
+    logits = _head(params, x, cfg) if shard is None \
+        else shard.head(params, x)
+    return logits, caches, aux_total
 
 
 def _head(params, x, cfg: ModelConfig):
     """Logits in f32 over the padded vocabulary: the matmul in the compute
-    dtype (tied: the embedding's transpose), then cast."""
+    dtype (tied: the embedding's transpose), then cast; without a
+    vocabulary, the final hidden states in f32."""
+    if not cfg.vocab_size:
+        return x.to(torch.float32)
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
     return (x @ w).to(torch.float32)
 
@@ -384,31 +411,46 @@ def check_position(cfg: ModelConfig, caches, position: int) -> None:
         attn_mod.check_decode_position(cfg, s_max, position)
 
 
-def decode_step(params: dict, tokens_t: torch.Tensor, caches, position,
-                cfg: ModelConfig, *, rows=None):
+def decode_step(params: dict, tokens_t: Optional[torch.Tensor], caches,
+                position, cfg: ModelConfig, *, rows=None,
+                embeds_t: Optional[torch.Tensor] = None):
     """One new token for every sequence.
 
-    tokens_t [B, 1] ints; position: the current absolute position, an int
+    tokens_t [B, 1] ints (or ``embeds_t`` [B, 1, D], the input already
+    embedded); position: the current absolute position, an int
     (checked against the attention caches first: ``CachePositionError``)
     or a one-element int64 tensor on the device.  The caches are written in
     place; with ``rows`` (indices or a bool [B] mask) every row is computed
     as the reference computes it (its new K/V column in place, its new
     state) but only those rows' caches keep what the step wrote.  With
     tensor ``position`` and ``rows`` nothing reads a device value on the
-    host, so the step can be captured in a CUDA graph.
+    host, so the step can be captured in a CUDA graph.  Under M-RoPE the
+    text ``t`` coordinate continues from the patch grid's end, as
+    ``frontends.patch_grid_mrope`` numbered the prefill:
+    ``text_mrope_t0(n_patch) + position - n_patch`` (the reference's).
     -> (logits [B, 1, V_pad] f32, caches)
     """
     check_supported(cfg)
-    b = tokens_t.shape[0]
-    dev = tokens_t.device
+    lead = embeds_t if embeds_t is not None else tokens_t
+    b, dev = lead.shape[0], lead.device
     if not isinstance(position, torch.Tensor):
         check_position(cfg, caches, int(position))
         position = torch.full((1,), int(position), dtype=torch.int64,
                               device=dev)
-    rope = rope_tables(position.view(1, 1).expand(b, 1),
-                       cfg.resolved_head_dim, cfg.rope_theta, cfg.rope)
+    pos_arr = position.view(1, 1).expand(b, 1)
+    mrope = None
+    if cfg.rope == "mrope":
+        t_coord = pos_arr
+        if cfg.frontend == "patch" and cfg.frontend_tokens:
+            t_coord = text_mrope_t0(cfg.frontend_tokens) \
+                + (pos_arr - cfg.frontend_tokens)
+        mrope = t_coord[..., None].expand(b, 1, 3)
+    rope = rope_tables(pos_arr, cfg.resolved_head_dim, cfg.rope_theta,
+                       cfg.rope, mrope)
     rows = attn_mod.row_mask(rows, b, dev)
-    x = params["embed"][tokens_t.long()].to(torch_dtype(cfg.compute_dtype))
+    dt = torch_dtype(cfg.compute_dtype)
+    x = embeds_t.to(dt) if embeds_t is not None \
+        else params["embed"][tokens_t.long()].to(dt)
     for i, (lp, layer_type) in enumerate(zip(params["layers"],
                                              cfg.layer_pattern)):
         x, _, _ = _apply_block(lp, x, None, cfg, layer_type, mode="decode",

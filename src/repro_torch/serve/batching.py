@@ -15,8 +15,10 @@ touches another slot's cache.  Every row is still computed as the
 reference computes it (its new K/V column in place, its new recurrent
 state), which matters where the rows of a call are coupled: an MoE layer's
 capacity is shared by every row of the call.  Admission resets every leaf
-of the slot's own slice.  Dense, MoE, SSM and hybrid stacks are served; a
-period-scanned hybrid is refused, as in the reference.
+of the slot's own slice.  Dense, MoE, SSM, hybrid and vision-language
+stacks are served (the latter over token prompts, its M-RoPE ``t``
+continuing after the patch grid as in the reference); a period-scanned
+hybrid and an encoder-only config are refused.
 """
 
 from __future__ import annotations
@@ -54,6 +56,8 @@ class BatchedServer:
                  max_len: int, eos_id: Optional[int] = None,
                  temperature: float = 0.0, seed: int = 0, device=None):
         lm.check_supported(cfg)
+        if not cfg.has_decode:
+            raise ValueError(f"{cfg.name} is encoder-only: no decode step")
         if cfg.use_period_scan:
             raise NotImplementedError(
                 "BatchedServer does not serve period-scanned hybrids (as "

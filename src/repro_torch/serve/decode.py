@@ -4,8 +4,8 @@
 (params, caches, tokens, pos) -> (next_token_logits, caches); sampling
 (greedy / temperature) happens on top, so one step serves both.  The
 reference's ``lax.scan`` over decode steps is a Python loop here, and the
-caches are written in place.  Every family with the token frontend
-serves through these (dense, MoE, SSM, hybrid).
+caches are written in place.  Every family with a decode step serves
+through these (dense, MoE, SSM, hybrid, vlm).
 """
 
 from __future__ import annotations

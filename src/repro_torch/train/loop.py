@@ -18,6 +18,12 @@ With ``microbatches`` > 1 the batch is split along its first dim and the
 gradients accumulated in order, as the reference's scan does: microbatch
 0's gradient cast to ``accum_dtype``, each later one added, the sum
 divided by the count; the metrics are averaged.
+
+On a (data, model) mesh (``shard=``, ``repro_torch.distributed.
+tensor_parallel``) the same step runs on this rank's blocks: the forward
+gathers and splits as the mesh says, the gradients are summed over the
+ranks, and the optimizer reduces over the split leaves
+(``optimizers``' ``layout=``).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Optional
 import torch
 
 from repro_torch.convert import unstack_layers
+from repro_torch.distributed.tensor_parallel import log_lik
 from repro_torch.models import lm
 from repro_torch.models.attention import torch_dtype
 from repro_torch.models.config import ModelConfig
@@ -44,15 +51,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     before the log-sum-exp, and the label logit is taken by a masked sum
     over the vocabulary (the one selected entry plus zeros, so the same
     value a gather gives)."""
-    v_pad = logits.shape[-1]
-    logits = logits.to(torch.float32)
-    vocab_ids = torch.arange(v_pad, device=logits.device)
-    if v_pad > vocab_size:
-        logits = torch.where(vocab_ids >= vocab_size, -1e30, logits)
-    lse = torch.logsumexp(logits, dim=-1)                      # [B, S]
-    sel = vocab_ids == labels[..., None].long()
-    label_logit = torch.sum(torch.where(sel, logits, 0.0), dim=-1)
-    ll = label_logit - lse
+    ll = log_lik(logits, labels, vocab_size)                   # [B, S]
     if mask is None:
         mask = torch.ones_like(labels, dtype=torch.float32)
     mask = mask.to(torch.float32)
@@ -61,22 +60,29 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def loss_fn(params, batch, cfg: ModelConfig, *, attn_impl: str = "auto",
-            chunk: int = 512):
+            chunk: int = 512, shard=None):
     """-> (the loss autograd differentiates, metrics): the next-token CE
     (a per-position CE for an encoder-only config) plus, with MoE,
     ``MOE_LB_COEF`` times the load-balance loss averaged over the layers
-    and the router z-loss.  ``params`` in the reference's layout."""
+    and the router z-loss.  ``params`` in the reference's layout.  With
+    ``shard`` (``tensor_parallel.ShardedLM``), ``params`` are this rank's
+    blocks, ``batch`` its rows, and the CE this rank's share of the global
+    mean (``ShardedLM.cross_entropy``)."""
     logits, _, aux = lm.forward(unstack_layers(params, cfg), batch, cfg,
                                 mode="train", attn_impl=attn_impl,
-                                chunk=chunk)
+                                chunk=chunk, shard=shard)
+    if shard is None:
+        ce_of = lambda lg, lab, mask: cross_entropy(lg, lab, cfg.vocab_size,
+                                                    mask)
+    else:
+        ce_of = shard.cross_entropy
     if cfg.causal:
         tokens = batch["tokens"]
         text_logits = logits[:, -tokens.shape[1]:]       # skip patch slots
-        ce, denom = cross_entropy(text_logits[:, :-1], tokens[:, 1:],
-                                  cfg.vocab_size, batch.get("mask"))
+        ce, denom = ce_of(text_logits[:, :-1], tokens[:, 1:],
+                          batch.get("mask"))
     else:
-        ce, denom = cross_entropy(logits, batch["labels"], cfg.vocab_size,
-                                  batch.get("mask"))
+        ce, denom = ce_of(logits, batch["labels"], batch.get("mask"))
     total = ce
     metrics = {"loss": ce, "tokens": denom}
     if cfg.moe is not None:
@@ -88,34 +94,46 @@ def loss_fn(params, batch, cfg: ModelConfig, *, attn_impl: str = "auto",
 
 
 def grad_and_metrics(params, batch, cfg: ModelConfig, *,
-                     attn_impl: str = "auto", chunk: int = 512):
+                     attn_impl: str = "auto", chunk: int = 512, shard=None):
     """-> (metrics, gradient tree shaped like ``params``, the reference's
     layout, each leaf in its parameter's dtype).  ``params`` is not
-    changed."""
+    changed.  With ``shard``: ``params`` this rank's blocks and ``batch``
+    its rows; the gradient is each block's, summed over the ranks, and the
+    metrics the global ones."""
     leaves = tree_leaves(params)
     with torch.enable_grad():
         live = [p.detach().requires_grad_(True) for p in leaves]
         total, metrics = loss_fn(tree_unflatten(params, live), batch, cfg,
-                                 attn_impl=attn_impl, chunk=chunk)
+                                 attn_impl=attn_impl, chunk=chunk,
+                                 shard=shard)
         grads = torch.autograd.grad(total, live, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for g, p in zip(grads, leaves)]
-    return ({k: v.detach() for k, v in metrics.items()},
-            tree_unflatten(params, grads))
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if shard is not None:
+        shard.finish_grads(grads, params)
+        metrics["loss"] = shard.sum_over_batch(metrics["loss"])
+    return metrics, tree_unflatten(params, grads)
 
 
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
                     microbatches: int = 1, attn_impl: str = "auto",
-                    chunk: int = 512, accum_dtype=None):
+                    chunk: int = 512, accum_dtype=None, shard=None):
     """``accum_dtype``: the gradient accumulator's dtype with microbatches
     (default f32; each microbatch's gradient is still computed in the
-    parameters' dtype, only the running sum is stored in this one)."""
+    parameters' dtype, only the running sum is stored in this one).
+    ``shard`` (``tensor_parallel.ShardedLM``): the step runs on this
+    rank's blocks of the parameters and state (the optimizer built with
+    ``layout=shard.layout``) and takes the global batch, each microbatch's
+    rows split over the data ranks."""
     acc_dt = torch_dtype(accum_dtype) if isinstance(accum_dtype, str) \
         else (accum_dtype or torch.float32)
 
     def grads_of(params, batch):
+        if shard is not None:
+            batch = shard.local_batch(batch)
         return grad_and_metrics(params, batch, cfg, attn_impl=attn_impl,
-                                chunk=chunk)
+                                chunk=chunk, shard=shard)
 
     def single(params, opt_state, batch):
         metrics, grads = grads_of(params, batch)

@@ -73,9 +73,23 @@ def _step_of(state) -> torch.Tensor:
 # AdamW
 # ---------------------------------------------------------------------------
 
+def _norm_fn(layout):
+    """The global norm of a list of gradient leaves: over whole leaves, or
+    over blocks (``layout``: ``tensor_parallel.Blocks``)."""
+    if layout is None:
+        return lambda leaves, tree: _global_norm(leaves)
+    return lambda leaves, tree: layout.global_norm(
+        leaves, layout.flat_specs(tree))
+
+
 def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-          weight_decay: float = 0.1, max_grad_norm: float = 1.0) -> Optimizer:
+          weight_decay: float = 0.1, max_grad_norm: float = 1.0,
+          layout=None) -> Optimizer:
+    """``layout``: the trees are blocks on a mesh
+    (``tensor_parallel.Blocks``); only the clip's global norm reduces over
+    the ranks, the rest is elementwise."""
     lr_fn = _lr_fn(lr)
+    norm_of = _norm_fn(layout)
 
     def init(params):
         leaves = tree_leaves(params)
@@ -90,7 +104,7 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         flat_g = tree_leaves(grads)
         flat_m = tree_leaves(state["mu"])
         flat_v = tree_leaves(state["nu"])
-        gnorm = _global_norm(flat_g)
+        gnorm = norm_of(flat_g, params)
         scale = _clip_scale(gnorm, max_grad_norm)
         step = _step_of(state)
         t = step.to(F32)
@@ -123,11 +137,25 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
 
 def adafactor(lr=1e-3, eps: float = 1e-30, clip_threshold: float = 1.0,
               decay: float = 0.8, weight_decay: float = 0.0,
-              max_grad_norm: float = 1.0) -> Optimizer:
+              max_grad_norm: float = 1.0, layout=None) -> Optimizer:
+    """``layout``: the trees are blocks on a mesh
+    (``tensor_parallel.Blocks``): the factored moments' row and column
+    means, their normalizer and the update's RMS clip are taken over the
+    whole leaf (all-reduced over the axes the leaf is split on), and the
+    state's blocks are those of ``param_shardings`` of the state."""
     lr_fn = _lr_fn(lr)
+    norm_of = _norm_fn(layout)
 
     def _factored(shape) -> bool:
         return len(shape) >= 2
+
+    def mean_dim(x, dim, spec, keepdim=False):
+        if layout is None:
+            return x.mean(dim=dim, keepdim=keepdim)
+        return layout.mean_dim(x, dim, spec[dim], keepdim)
+
+    def mean_all(x, spec):
+        return torch.mean(x) if layout is None else layout.mean_all(x, spec)
 
     def init(params):
         def leaf(p):
@@ -145,7 +173,7 @@ def adafactor(lr=1e-3, eps: float = 1e-30, clip_threshold: float = 1.0,
     def update(grads, state, params):
         flat_p = tree_leaves(params)
         flat_g = tree_leaves(grads)
-        gnorm = _global_norm(flat_g)
+        gnorm = norm_of(flat_g, params)
         scale = _clip_scale(gnorm, max_grad_norm)
         step = _step_of(state)
         t = step.to(F32)
@@ -153,15 +181,19 @@ def adafactor(lr=1e-3, eps: float = 1e-30, clip_threshold: float = 1.0,
         lr_t = lr_fn(step)
         # one state entry ({vr, vc} or {v}) per parameter
         flat_v = tree_leaves(state["v"], up_to=params)
+        specs = layout.flat_specs(params) if layout is not None \
+            else [None] * len(flat_p)
         new_p, new_v = [], []
-        for g, v, p in zip(flat_g, flat_v, flat_p):
+        for g, v, p, spec in zip(flat_g, flat_v, flat_p, specs):
             g = g.to(F32) * scale
             g2 = g * g + eps
             if _factored(p.shape):
-                vr = beta * v["vr"] + (1 - beta) * g2.mean(dim=-1)
-                vc = beta * v["vc"] + (1 - beta) * g2.mean(dim=-2)
-                denom_r = vr / torch.clamp(vr.mean(dim=-1, keepdim=True),
-                                           min=eps)
+                vr = beta * v["vr"] + (1 - beta) * mean_dim(g2, -1, spec)
+                vc = beta * v["vc"] + (1 - beta) * mean_dim(g2, -2, spec)
+                # vr's last dim is the parameter's dim -2
+                denom_r = vr / torch.clamp(
+                    mean_dim(vr, -1, spec and spec[:-1], keepdim=True),
+                    min=eps)
                 pre = (torch.rsqrt(denom_r)[..., None]
                        * torch.rsqrt(vc)[..., None, :])
                 u = g * pre
@@ -171,7 +203,7 @@ def adafactor(lr=1e-3, eps: float = 1e-30, clip_threshold: float = 1.0,
                 u = g * torch.rsqrt(vv)
                 nv = {"v": vv}
             # update clipping by RMS
-            rms_u = torch.sqrt(torch.mean(u * u) + 1e-30)
+            rms_u = torch.sqrt(mean_all(u * u, spec) + 1e-30)
             u = u / torch.clamp(rms_u / clip_threshold, min=1.0)
             u = u + weight_decay * p.to(F32)
             new_p.append((p.to(F32) - lr_t * u).to(p.dtype))

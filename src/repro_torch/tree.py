@@ -53,6 +53,17 @@ def path_to_str(path) -> str:
     return "/".join(str(p) for p in path)
 
 
+def tree_paths(tree, prefix=()) -> list:
+    """The path string of every leaf, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+    elif isinstance(tree, (list, tuple)):
+        keys = range(len(tree))
+    else:
+        return [path_to_str(prefix)]
+    return [p for k in keys for p in tree_paths(tree[k], prefix + (k,))]
+
+
 def flatten_with_paths(tree, prefix=()) -> dict:
     """``{path string: leaf}``, a sequence's keys its indices."""
     if isinstance(tree, dict):
@@ -68,4 +79,4 @@ def flatten_with_paths(tree, prefix=()) -> dict:
 
 
 __all__ = ["tree_leaves", "tree_unflatten", "tree_map", "path_to_str",
-           "flatten_with_paths"]
+           "tree_paths", "flatten_with_paths"]

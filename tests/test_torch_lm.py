@@ -40,6 +40,8 @@ DENSE = ("qwen3-0.6b", "chatglm3-6b", "granite-3-8b", "command-r-35b")
 # test_torch_ssm.py)
 OTHER = ("deepseek-moe-16b", "kimi-k2-1t-a32b", "mamba2-2.7b",
          "recurrentgemma-2b")
+# the patch and frame frontends' configs (their tests:
+# test_torch_frontends.py)
 UNPORTED = ("qwen2-vl-72b", "hubert-xlarge")
 # param_count() of the published configs the card serves
 PARAM_COUNTS = {"qwen3-0.6b": 596_071_424,
@@ -162,14 +164,27 @@ def test_parameter_tree_shapes_at_full_size(name):
 
 @pytest.mark.parametrize("name", UNPORTED)
 def test_unported_families_raise(name):
+    """The vlm and audio families, once refused, now run: init, a forward
+    over projected patches or frames, and (vlm) empty decode caches."""
     cfg = get_config(name).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        lm.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        lm.forward({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
-                   cfg)
-    with pytest.raises(NotImplementedError):
-        lm.init_caches(cfg, 1, 8, device="cpu")
+    params = lm.init_params(cfg, device="cpu")
+    assert params["frontend"]["proj"].shape == (cfg.frontend_dim,
+                                                cfg.d_model)
+    gen = torch.Generator().manual_seed(0)
+    if cfg.frontend == "frame":
+        batch = {"frames": torch.randn((1, 4, cfg.frontend_dim),
+                                       generator=gen)}
+        s = 4
+    else:
+        batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
+                 "patches": torch.randn((1, cfg.frontend_tokens,
+                                         cfg.frontend_dim), generator=gen)}
+        s = 4 + cfg.frontend_tokens
+        caches = lm.init_caches(cfg, 1, 8, device="cpu")
+        assert caches["k"].shape[:3] == (cfg.num_layers, 1, 8)
+    logits, _, _ = lm.forward(params, batch, cfg)
+    assert logits.shape == (1, s, cfg.padded_vocab)
+    assert torch.isfinite(logits).all()
 
 
 @pytest.mark.parametrize("name,window,prefill", [

@@ -308,9 +308,18 @@ def test_server_resets_a_slot_in_place_and_stops_at_max_len():
 
 
 def test_unported_family_refused_by_the_server():
+    """The vlm, once refused, is served over token prompts (its parity
+    with the reference's server: test_torch_frontends.py); the
+    encoder-only audio config is refused, having no decode step."""
     cfg = get_config("qwen2-vl-72b").reduced()
-    with pytest.raises(NotImplementedError):
-        BatchedServer({}, cfg, batch_slots=1, max_len=8, device="cpu")
+    server = BatchedServer(lm.init_params(cfg, device="cpu"), cfg,
+                           batch_slots=1, max_len=8, device="cpu")
+    server.submit(Request(uid=0, prompt=np.array([1, 2, 3], np.int32),
+                          max_new_tokens=2))
+    assert len(server.run()[0].output) == 2
+    with pytest.raises(ValueError, match="encoder-only"):
+        BatchedServer({}, get_config("hubert-xlarge").reduced(),
+                      batch_slots=1, max_len=8, device="cpu")
 
 
 def test_gee_delta_server_reexport():

@@ -589,12 +589,39 @@ def test_mamba2_backward_runs_and_serving_is_unchanged():
 
 @pytest.mark.parametrize("flags", (["--devices", "2"],
                                    ["--model-parallel", "2"]))
-def test_launcher_refuses_more_than_one_device(flags):
+def test_launcher_refuses_more_than_one_device(flags, tmp_path):
+    """More than one device, once refused, now runs on a mesh: two gloo
+    ranks under ``torchrun`` (a (2, 1) or a (1, 2) mesh) log the losses a
+    one-process run logs, and started alone the launcher says to use
+    ``torchrun``."""
+    import os
+    import subprocess
+    import sys
+
     from repro_torch.launch import train as launch
 
-    with pytest.raises(SystemExit, match="8f"):
-        launch.main(["--arch", "qwen3-0.6b", "--reduced", "--steps", "1",
-                     "--device", "cpu", *flags])
+    args = ["--arch", "qwen3-0.6b", "--reduced", "--steps", "3", "--batch",
+            "4", "--seq", "16", "--log-every", "1", "--device", "cpu"]
+    with pytest.raises(SystemExit, match="torchrun"):
+        launch.main(args + flags)
+    out = tmp_path / "metrics.json"
+    src = str(Path(__file__).parent.parent / "src")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train", *args,
+         *flags, "--metrics-out", str(out)],
+        capture_output=True, text=True, timeout=240,
+        env={**os.environ, "PYTHONPATH": src})
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.count("step     2") == 1       # rank 0 alone prints
+    import json
+
+    got = json.loads(out.read_text())
+    want = launch.main(args)
+    assert [h["step"] for h in got] == [h["step"] for h in want]
+    for g, w in zip(got, want):
+        assert g["loss"] == pytest.approx(w["loss"], rel=1e-5)
+        assert g["grad_norm"] == pytest.approx(w["grad_norm"], rel=1e-5)
 
 
 # ---------------------------------------------------------------------------

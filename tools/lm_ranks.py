@@ -1,0 +1,463 @@
+#!/usr/bin/env python3
+"""The LM's train step on a (data, model) mesh across real ranks, one card a
+rank: ``qwen3-0.6b`` at its published widths and depth.
+
+    torchrun --standalone --nproc-per-node 4 tools/lm_ranks.py
+    torchrun --standalone --nproc-per-node 2 tools/lm_ranks.py \\
+        --device cpu --layers 2 --batch 4 --seq 32 --steps 2 --reduced
+
+On the card every rank joins NCCL on its own GPU (``LOCAL_RANK``); with
+``--device cpu`` the ranks join gloo.  The mesh is (2, 2) on four ranks,
+(1, 2) on two and (1, 1) on one (``--model-parallel`` overrides the model
+axis).  Each rank:
+
+1. f32, the config cut to ``--check-layers`` layers: one AdamW step of the
+   sharded step (``tensor_parallel.ShardedLM``) against the one-device step
+   of the same seeded weights and batch on rank 0's device: the loss within
+   1e-5 relative, every gathered gradient leaf within 1e-4 * max|want| +
+   1e-5, the updated parameters within ``adamw_step_bound``;
+2. bf16 at full depth: ``--steps`` AdamW steps at B x S = ``--batch`` x
+   ``--seq`` on ``batch_at`` data, the step's p50 (host clock, each step
+   ending in a device sync and a barrier), tokens/s, each rank's peak
+   device memory, and one profiled step's device time split into the
+   collectives' (NCCL) kernels and the rest;
+3. a checkpoint of the bf16 parameters saved sharded on this mesh, restored
+   on another mesh of the same ranks through ``elastic.restore_on_mesh``
+   ((1, 4) from (2, 2), (2, 1) from (1, 2); (1, 1) again on one rank) and
+   saved again, and restored whole in rank 0's process and saved: the
+   three manifests' digests equal;
+4. one int8 compressed all-reduce over ``data`` against the exact mean:
+   every element within half a quantum of the shared scale.
+
+Rank 0 prints one line and writes the JSON to ``--out`` (default
+``chiprun_out/lm_ranks.json``).  ``chip_smoke.py`` phase 17 runs the same
+work in ranks it spawns (``spawned_rank``).  Exits non-zero if any rank
+fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import shutil
+import sys
+import tempfile
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(REPO, "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+
+ARCH = "qwen3-0.6b"
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
+
+
+def mesh_shape(world: int, model_parallel=None) -> tuple:
+    """(data, model): (2, 2) on four ranks, (1, 2) on two, (1, 1) on one."""
+    m = model_parallel or min(world, 2)
+    return world // m, m
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", default=None,
+                    help="'cpu' for gloo; default: one card a rank (NCCL)")
+    ap.add_argument("--model-parallel", type=int, default=None)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--steps", type=int, default=6)
+    ap.add_argument("--check-layers", type=int, default=2)
+    ap.add_argument("--check-batch", type=int, default=4)
+    ap.add_argument("--check-seq", type=int, default=256)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the bf16 run to this depth (default: all)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the reduced config (a host-sized run)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
+                                                  "lm_ranks.json"))
+    return ap.parse_args(argv)
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _gather_tree(tree, specs, mesh):
+    from repro_torch.distributed.sharding import gather_leaf
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    return {p: gather_leaf(x, specs[p], mesh)
+            for p, x in zip(tree_paths(tree), tree_leaves(tree))}
+
+
+def f32_check(args, cfg, mesh, device) -> dict:
+    """Step 1: the sharded f32 step against the one-device step."""
+    from repro_torch.convert import lm_params_to_reference
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.distributed.tensor_parallel import ShardedLM, shard_tree
+    from repro_torch.models import lm
+    from repro_torch.train import loop
+    from repro_torch.train.optimizers import adamw_step_bound, get_optimizer
+    from repro_torch.tree import flatten_with_paths
+
+    cut = dataclasses.replace(cfg, num_layers=args.check_layers,
+                              param_dtype="float32", compute_dtype="float32")
+    lr = 1e-2
+    params = lm_params_to_reference(
+        lm.init_params(cut, args.seed, device=device), cut)
+    dc = DataConfig(cut.vocab_size, args.check_seq, args.check_batch,
+                    seed=args.seed)
+    batch = {"tokens": torch.from_numpy(batch_at(dc, 0)["tokens"])
+             .to(device)}
+    shard = ShardedLM(cut, mesh)
+    blocks = shard_tree(params, shard.param_specs, mesh)
+    m_s, g_s = loop.grad_and_metrics(blocks, shard.local_batch(batch), cut,
+                                     shard=shard)
+    opt = get_optimizer("adamw", lr, layout=shard.layout)
+    p1_s, _, sm = loop.make_train_step(cut, opt, shard=shard)(
+        blocks, opt.init(blocks), batch)
+    g_full = _gather_tree(g_s, shard.param_specs, mesh)
+    p_full = _gather_tree(p1_s, shard.param_specs, mesh)
+    del blocks, g_s, p1_s
+    out = {"layers": args.check_layers, "batch": args.check_batch,
+           "seq": args.check_seq}
+    if dist.get_rank() == 0:
+        m_1, g_1 = loop.grad_and_metrics(params, batch, cut)
+        opt1 = get_optimizer("adamw", lr)
+        p1_1, _, m1 = loop.make_train_step(cut, opt1)(
+            params, opt1.init(params), batch)
+        g_1, p1_1 = flatten_with_paths(g_1), flatten_with_paths(p1_1)
+        loss_rel = abs(float(sm["loss"]) - float(m1["loss"])) \
+            / abs(float(m1["loss"]))
+        if not loss_rel <= 1e-5:
+            raise AssertionError(f"sharded loss {float(sm['loss'])} vs "
+                                 f"{float(m1['loss'])}")
+        s_a = min(1.0, 1.0 / max(float(sm["grad_norm"]), 1e-9))
+        s_b = min(1.0, 1.0 / max(float(m1["grad_norm"]), 1e-9))
+        grad_worst, upd_worst = 0.0, 0.0
+        for k, want in g_1.items():
+            got = g_full[k]
+            bound = 1e-4 * float(want.abs().max()) + 1e-5
+            grad_worst = max(grad_worst,
+                             float((got - want).abs().max()) / bound)
+            b = adamw_step_bound(got.double() * s_a, want.double() * s_b,
+                                 p_full[k].double(), p1_1[k].double(), lr)
+            upd_worst = max(upd_worst, float(
+                ((p_full[k].double() - p1_1[k].double()).abs() / b).max()))
+        if not grad_worst <= 1.0:
+            raise AssertionError(f"sharded gradients at {grad_worst:.3g} "
+                                 f"of their bound")
+        if not upd_worst <= 1.0:
+            raise AssertionError(f"sharded updates at {upd_worst:.3g} of "
+                                 f"their bound")
+        out.update(loss=float(sm["loss"]), loss_one_device=float(m1["loss"]),
+                   loss_rel_diff=loss_rel,
+                   grad_norm=float(sm["grad_norm"]),
+                   grad_norm_one_device=float(m1["grad_norm"]),
+                   grad_worst_over_bound=grad_worst,
+                   update_worst_over_bound=upd_worst, leaves=len(g_1))
+        del m_1, g_1, p1_1
+    del params, g_full, p_full
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def collective_split(prof) -> dict:
+    """One profiled step's device records: their summed time, the union of
+    their intervals (busy), and the summed time of the collectives' (NCCL)
+    kernels and of the rest (the two may overlap: other streams)."""
+    spans, total, comm = [], 0.0, 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dur = e.time_range.end - e.time_range.start
+        total += dur
+        if "nccl" in e.name.lower():
+            comm += dur
+        spans.append((e.time_range.start, e.time_range.end))
+    busy, end = 0.0, float("-inf")
+    for lo, hi in sorted(spans):
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return {"device_ms": total / 1e3, "busy_ms": busy / 1e3,
+            "collective_ms": comm / 1e3, "compute_ms": (total - comm) / 1e3,
+            "records": len(spans)}
+
+
+def bf16_run(args, cfg, mesh, device) -> tuple:
+    """Step 2: the bf16 step at full depth -> (numbers, final blocks,
+    their specs)."""
+    from repro_torch.convert import lm_params_to_reference
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.distributed.tensor_parallel import ShardedLM, shard_tree
+    from repro_torch.models import lm
+    from repro_torch.train import loop
+    from repro_torch.train.optimizers import cosine_schedule, get_optimizer
+    from repro_torch.tree import tree_leaves
+
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    shard = ShardedLM(cfg, mesh)
+    full = lm_params_to_reference(lm.init_params(cfg, args.seed,
+                                                 device=device), cfg)
+    n = sum(x.numel() for x in tree_leaves(full))
+    blocks = shard_tree(full, shard.param_specs, mesh)
+    del full
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    opt = get_optimizer("adamw", cosine_schedule(3e-4, 2, args.steps),
+                        layout=shard.layout)
+    state = opt.init(blocks)
+    step = loop.make_train_step(cfg, opt, shard=shard)
+    dc = DataConfig(cfg.vocab_size, args.seq, args.batch, seed=args.seed)
+    times, losses = [], []
+    for i in range(args.steps):
+        batch = {"tokens": torch.from_numpy(batch_at(dc, i)["tokens"])
+                 .to(device)}
+        dist.barrier()
+        t0 = time.perf_counter()
+        blocks, state, m = step(blocks, state, batch)
+        _sync(device)
+        dist.barrier()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated(device) \
+        if device.type == "cuda" else 0
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    batch = {"tokens": torch.from_numpy(batch_at(dc, 0)["tokens"])
+             .to(device)}
+    dist.barrier()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(blocks, state, batch)
+        _sync(device)
+        wall = (time.perf_counter() - t0) * 1e3
+    split = collective_split(prof)
+    split["wall_ms"] = wall
+    peaks = torch.tensor([float(peak)], device=device)
+    every = [torch.zeros_like(peaks) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, peaks)
+    steady = np.asarray(times[1:] or times)
+    p50 = float(np.percentile(steady, 50))
+    tokens = args.batch * args.seq
+    attn = 3 * 2 * 2 * args.batch * cfg.num_heads * args.seq ** 2 \
+        * cfg.resolved_head_dim * cfg.num_layers / 2
+    flop = 6 * n * tokens + attn
+    bound_ms = flop / (BF16_OPS_PER_S * dist.get_world_size()) * 1e3
+    del state
+    return ({"layers": cfg.num_layers, "batch": args.batch, "seq": args.seq,
+             "steps": args.steps, "param_elements": n, "step_ms": times,
+             "step_ms_p50": p50, "tokens_per_s": tokens / (p50 / 1e3),
+             "flop_bound_ms_all_ranks": bound_ms,
+             "bound_share": bound_ms / p50, "losses": losses,
+             "peak_bytes_by_rank": [float(x) for x in every],
+             "profiled_step": split}, blocks, shard.param_specs)
+
+
+def checkpoint_cross(args, cfg, blocks, specs, mesh, device, tmp) -> dict:
+    """Step 3: saved on this mesh, restored on another, saved again."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.convert import lm_params_to_reference
+    from repro_torch.distributed.elastic import restore_on_mesh
+    from repro_torch.distributed.sharding import param_shardings
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import lm
+
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    world = dist.get_world_size()
+    first, second, whole = (os.path.join(tmp, d) for d in ("a", "b", "c"))
+    pspecs = {"params/" + k: v for k, v in specs.items()}
+    t0 = time.perf_counter()
+    ckpt.save(first, 1, {"params": blocks}, {"step": 1}, shardings=pspecs,
+              mesh=mesh)
+    save_s = time.perf_counter() - t0
+    like = {"params": lm_params_to_reference(lm.abstract_params(cfg), cfg)}
+    data, model = mesh_shape(world, args.model_parallel)
+    # another mesh of the same ranks: (1, 4) from (2, 2), (2, 1) from
+    # (1, 2); one rank has only (1, 1)
+    other = (1, world) if data > 1 else (world, 1)
+    t0 = time.perf_counter()
+    mesh2 = make_mesh_for(world, other[1], device_type=device.type)
+    tree, extra = restore_on_mesh(first, 1, like, mesh2, device)
+    ckpt.save(second, 1, tree, extra, shardings=param_shardings(like, mesh2),
+              mesh=mesh2)
+    cross_s = time.perf_counter() - t0
+    del tree
+    if dist.get_rank() == 0:                 # and whole, in one process
+        tree, extra = ckpt.restore(first, 1, like, device)
+        ckpt.save(whole, 1, tree, extra)
+        del tree
+    dist.barrier()
+    digests = []
+    for d in (first, second, whole):
+        with open(os.path.join(d, "step_0000000001", "manifest.json")) as f:
+            digests.append(json.load(f)["digest"])
+    if len(set(digests)) != 1:
+        raise AssertionError(f"checkpoint digests differ across meshes: "
+                             f"{digests}")
+    return {"saved_on": [data, model], "restored_on": list(other),
+            "also_restored_whole": True, "digest": digests[0],
+            "save_s": save_s, "restore_and_save_s": cross_s}
+
+
+def compressed_check(args, mesh, device) -> dict:
+    """Step 4: one compressed all-reduce over ``data`` against the exact
+    mean."""
+    from repro_torch.distributed.compression import (
+        compressed_all_reduce_mean)
+
+    grp = mesh.get_group("data")
+    n = dist.get_world_size(grp)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed + dist.get_rank())
+    x = torch.randn((1 << 20,), generator=gen, device=device)
+    exact = x.clone()
+    dist.all_reduce(exact, group=grp)
+    exact /= n
+    peak = x.abs().max()
+    dist.all_reduce(peak, op=dist.ReduceOp.MAX, group=grp)
+    mean, err = compressed_all_reduce_mean(x, grp, torch.zeros_like(x))
+    quantum = float(peak) / 127
+    off = float((mean - exact).abs().max())
+    bound = quantum / 2 + 1e-6 * float(exact.abs().max())
+    if not off <= bound:
+        raise AssertionError(f"compressed mean off by {off:.4g} > "
+                             f"{bound:.4g}")
+    return {"elements": x.numel(), "data_ranks": n, "max_abs_err": off,
+            "bound": bound, "quantum": quantum,
+            "residual_max": float(err.abs().max())}
+
+
+def rank_work(args, device) -> dict:
+    """Steps 1-4 on this rank of the default process group."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh_for
+
+    world = dist.get_world_size()
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
+    cfg = get_config(ARCH)
+    if args.reduced:
+        cfg = dataclasses.replace(cfg.reduced(), param_dtype="bfloat16",
+                                  compute_dtype="bfloat16")
+    elif (cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size) != \
+            (28, 1024, 3072, 151_936):
+        raise AssertionError(f"{ARCH} is not the published config")
+    data, model = mesh_shape(world, args.model_parallel)
+    mesh = make_mesh_for(world, model, device_type=device.type)
+    out = {"world": world, "mesh": [data, model],
+           "backend": dist.get_backend()}
+    t0 = time.perf_counter()
+    out["f32_check"] = f32_check(args, cfg, mesh, device)
+    out["f32_check"]["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["bf16"], blocks, specs = bf16_run(args, cfg, mesh, device)
+    out["bf16"]["s"] = time.perf_counter() - t0
+    # one directory for every rank: rank 0's
+    tmp = [args.ckpt_dir or (tempfile.mkdtemp(prefix="lm_ranks_")
+                             if dist.get_rank() == 0 else None)]
+    dist.broadcast_object_list(tmp, src=0)
+    try:
+        out["checkpoint"] = checkpoint_cross(args, cfg, blocks, specs, mesh,
+                                             device, tmp[0])
+    finally:
+        dist.barrier()
+        if dist.get_rank() == 0 and not args.ckpt_dir:
+            shutil.rmtree(tmp[0], ignore_errors=True)
+    del blocks
+    out["compressed"] = compressed_check(args, mesh, device)
+    return out
+
+
+def summary(out: dict) -> str:
+    c, b, k, q = (out["f32_check"], out["bf16"], out["checkpoint"],
+                  out["compressed"])
+    split = b["profiled_step"]
+    return (f"lm_ranks: {out['world']} ranks over {out['backend']}, mesh "
+            f"(data, model) = {tuple(out['mesh'])}; f32 step cut to "
+            f"{c['layers']} layers vs one device: loss rel "
+            f"{c['loss_rel_diff']:.3g}, gradients {c['grad_worst_over_bound']:.3g}"
+            f" of bound, updates {c['update_worst_over_bound']:.3g} of bound; "
+            f"bf16 {b['layers']} layers B={b['batch']} x S={b['seq']}: step "
+            f"p50 {b['step_ms_p50']:.1f} ms, {b['tokens_per_s']:,.0f} tok/s, "
+            f"FLOP bound over the ranks {b['flop_bound_ms_all_ranks']:.2f} ms "
+            f"(share {b['bound_share']:.3f}), peak by rank "
+            f"{[round(p / 1e9, 2) for p in b['peak_bytes_by_rank']]} GB, a "
+            f"profiled step ({split['wall_ms']:.1f} ms) busy "
+            f"{split['busy_ms']:.1f} ms, kernels {split['compute_ms']:.1f} "
+            f"ms and collectives {split['collective_ms']:.1f} ms; loss "
+            f"{b['losses'][0]:.4f} -> {b['losses'][-1]:.4f}; checkpoint "
+            f"{tuple(k['saved_on'])} -> {tuple(k['restored_on'])} and whole: "
+            f"digests equal; "
+            f"int8 mean over {q['data_ranks']} data ranks off by "
+            f"{q['max_abs_err']:.3g} (bound {q['bound']:.3g})")
+
+
+def _device_for(args, local_rank: int):
+    if args.device == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise SystemExit("lm_ranks: no card (use --device cpu for gloo)")
+    torch.cuda.set_device(local_rank)
+    return torch.device("cuda", local_rank)
+
+
+def spawned_rank(rank: int, world: int, store: str, argv: list,
+                 out_path: str) -> None:
+    """One rank of ``torch.multiprocessing.start_processes`` (as
+    ``chip_smoke.py`` phase 17 spawns them): rank r on card r, NCCL (gloo
+    with ``--device cpu``) through a ``FileStore``; rank 0 writes the JSON
+    to ``out_path``."""
+    args = parse_args(argv)
+    device = _device_for(args, rank)
+    dist.init_process_group(
+        "nccl" if device.type == "cuda" else "gloo",
+        store=dist.FileStore(store, world), rank=rank, world_size=world,
+        **({"device_id": device} if device.type == "cuda" else {}))
+    try:
+        out = rank_work(args, device)
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(out, f, indent=1)
+    finally:
+        dist.destroy_process_group()
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    device = _device_for(args, local)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            **({"device_id": device}
+                               if device.type == "cuda" else {}))
+    try:
+        out = rank_work(args, device)
+        if dist.get_rank() == 0:
+            os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(out, f, indent=1)
+            print(summary(out), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
