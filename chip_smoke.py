@@ -87,7 +87,15 @@ paths on the paper's 10k-node SBM and on the ``cl-100k-1d8-l5`` stand-in
   (data, model) mesh -- (2, 2), (1, 2) or (1, 1) -- with ``qwen3-0.6b`` at
   full width: an f32 step cut to 2 layers against the one-card step, the
   bf16 step timed, a checkpoint crossing meshes with an equal digest, an
-  int8 compressed all-reduce against the exact mean.
+  int8 compressed all-reduce against the exact mean;
+* MoE training through the mesh's dispatch (phase 18):
+  ``deepseek-moe-16b`` at its published widths in bf16, one step against
+  an f32 step cut to 2 layers (the f32 run routed as the bf16 one, each
+  token that would route apart counted and its margin held),
+  then ``tools/lm_ranks.py``'s work at 4 of 28 layers in the same spawned
+  ranks, the MoE layers through ``ShardedLM``'s dispatch (expert-parallel
+  where the experts split over ``model``): AdamW steps at 8 x 512 with
+  each step's drop fraction at the published capacity factor 1.25.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; phase 11 counts its own checks apart, phase 12 its
@@ -157,7 +165,7 @@ PARITY_NODES = 2000
 PARITY_BATCHES = 32
 STREAM_DATASET = "cl-100k-1d8-l5"
 STREAM_BATCHES = 256
-STREAM_ALL_ON_S = 60.0
+STREAM_ALL_ON_S = 45.0
 REFIT_REPS = 3
 KILL_NODES = 2000
 KILL_BATCHES = 24
@@ -170,7 +178,7 @@ PLANE_BUDGET_BYTES = 8 << 30
 # longer than the host takes to enqueue one step's launches)
 LM_ARCH = "qwen3-0.6b"
 LM_FIXTURE = "tests/torch_fixtures/lm_qwen3_reduced.npz"
-SERVE_SLOTS, SERVE_MAX_LEN, SERVE_REQUESTS = 8, 512, 32
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_REQUESTS = 8, 512, 16
 SERVE_PROMPT, SERVE_NEW = (8, 64), (16, 64)
 STEP_BATCH, STEP_CACHE, STEP_FILL_ROWS = 64, 4096, 2
 STEP_SLEEP_CYCLES = 200_000_000
@@ -203,8 +211,8 @@ FAMILY_FIXTURES = {
 MOE_FIXTURE_FACTOR = 1.0
 MOE_F32_LAYERS = 2
 CHECK_BATCH, CHECK_SEQ = 4, 64
-FAMILY_SLOTS, FAMILY_MAX_LEN, FAMILY_REQUESTS = 8, 128, 16
-FAMILY_PROMPT, FAMILY_NEW = (4, 16), (8, 24)
+FAMILY_SLOTS, FAMILY_MAX_LEN, FAMILY_REQUESTS = 8, 128, 12
+FAMILY_PROMPT, FAMILY_NEW = (4, 16), (8, 16)
 SSM_PREFILL, SSM_DECODE = 1024, 16
 HYBRID_PREFILL, HYBRID_DECODE = 2560, 64
 MOE_STEP_BATCH, MOE_STEP_CACHE = 8, 512
@@ -260,13 +268,13 @@ ROUTER_FLIP_SLACK = 2.0
 # B x S (S = 1,024 would hold ~4x the masked schedule's f32 attention
 # blocks, ~90 GB by PERF.md's reckoning: over the card), its AdamW steps and
 # cosine schedule, the remat run's steps; the launcher's kill-and-resume
-# run (reduced, in bf16, a checkpoint every 4 of 100 steps) and its wait.
+# run (reduced, in bf16, a checkpoint every 4 of 48 steps) and its wait.
 TRAIN_FIXTURE = "tests/torch_fixtures/lm_train_reduced.npz"
 TRAIN_FIXTURE_LR, TRAIN_FIXTURE_CHUNK = 1e-3, 8
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 20
 TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
 REMAT_STEPS, ADAFACTOR_STEPS = 3, 3
-KILL_ARGS = ["--arch", LM_ARCH, "--steps", "100", "--batch", "8", "--seq",
+KILL_ARGS = ["--arch", LM_ARCH, "--steps", "48", "--batch", "8", "--seq",
              "128", "--ckpt-interval", "4", "--log-every", "50"]
 # the launcher's main on the reduced config in bf16 (its checkpoints then
 # hold bf16 leaves), given KILL_ARGS
@@ -301,6 +309,7 @@ U_BF16 = 2.0 ** -8             # bf16's: 8 significant bits, nearest
 # whose sign differs between the runs may move its weight by 2 lr: there
 # the bound is met nearly exactly).
 CUT_LAYERS, CUT_LR = 2, 1e-2
+CHECK_CHUNK = 1 << 25          # elements a float64 check takes at once
 CUT_LOGIT_REL = (6 * CUT_LAYERS + 2) * 2.0 ** -8
 CUT_GRAD_REL = (18 * CUT_LAYERS + 4) * 2.0 ** -8
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
@@ -328,6 +337,18 @@ VLM_PROMPT, VLM_NEW = (4, 12), (8, 16)
 VLM_BF16_PAIR_REL = 2 * 2.0 ** -8 * (6 * VLM_LAYERS) ** 0.5
 MESH_RANKS_MAX, MESH_WAIT_S = 4, 420
 MESH_ARGS = ["--steps", "6", "--batch", "8", "--seq", "512"]
+# Phase 18: deepseek-moe-16b training at its published widths through the
+# mesh's MoE dispatch, cut in depth to fit one 80 GB card.  A layer is
+# 587.8 M elements (64 experts of 3 x 2,048 x 1,408, attention 4 x 2,048^2,
+# 2 shared experts), the embedding and head 419.4 M; bf16 parameters and
+# gradients and f32 AdamW moments updated in place, 14 bytes an element:
+# ~8.2 GB a layer and 5.9 GB for the embedding and head, plus the
+# activations at 8 x 512 tokens.  4 layers read a 42.93 GB peak on the
+# H100 (PERF.md section 6), ~8.6 GB a layer with its activations; 6 layers
+# (58.04 GB) fit too, but the whole script must end within its time limit.
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "deepseek-moe-16b", 4
+MOE_TRAIN_ARGS = ["--arch", MOE_TRAIN_ARCH, "--layers", str(MOE_TRAIN_LAYERS),
+                  "--steps", "6", "--batch", "8", "--seq", "512"]
 
 
 def say(line: str) -> None:
@@ -3011,30 +3032,44 @@ def fixture_phase(torch, arch, cfg) -> dict:
     return out
 
 
-def route_spy(torch, moe_mod, records):
+def route_spy(torch, moe_mod, records, replay=None):
     """A stand-in for ``moe.moe_forward`` (the one installed when it is
-    made) that records, a call, each token's top-k expert set and kept
-    (within capacity) set [T, E], its f32 router logits and the 2-norm of
-    the router's input row, on the host."""
-    orig = moe_mod.moe_forward
+    made) that records, a call, each token's top-k experts ``top_e`` [T, k],
+    its top-k expert set and kept (within capacity) set [T, E], its f32
+    router logits and the 2-norm of the router's input row, on the host.
+    Given ``replay`` (another run's records), call i routes its tokens to
+    ``replay[i]``'s experts (``moe.top_k`` swapped for the call: their
+    probabilities renormalized as the top-k's are); what it records is
+    still its own routing."""
+    orig, top_k = moe_mod.moe_forward, moe_mod.top_k
 
     def spy(params, x, m):
-        y, aux = orig(params, x, m)
-        xf = x.reshape(-1, x.shape[-1]).to(torch.float32)
-        logits = xf @ params["router"]
-        t_ = xf.shape[0]
-        r = moe_mod.route(logits, m, moe_mod.capacity(t_, m))
-        kept = torch.zeros(t_ * m.top_k, dtype=torch.bool, device=x.device)
-        kept[r["sort_idx"]] = r["keep"]
-        top = torch.zeros((t_, m.num_experts), dtype=torch.bool,
-                          device=x.device)
-        kept_set = top.clone()
-        top.scatter_(1, r["top_e"], True)
-        kept_set.scatter_(1, r["top_e"], kept.view(t_, m.top_k))
-        records.append({"top": top.cpu(), "kept": kept_set.cpu(),
-                        "logits": logits.cpu(),
-                        "h_norm": xf.norm(dim=-1).cpu(),
-                        "w_norm": float(params["router"].norm(dim=0).max())})
+        i = len(records)
+        with torch.no_grad():
+            xf = x.reshape(-1, x.shape[-1]).to(torch.float32)
+            logits = xf @ params["router"]
+            t_ = xf.shape[0]
+            r = moe_mod.route(logits, m, moe_mod.capacity(t_, m))
+            kept = torch.zeros(t_ * m.top_k, dtype=torch.bool,
+                               device=x.device)
+            kept[r["sort_idx"]] = r["keep"]
+            top = torch.zeros((t_, m.num_experts), dtype=torch.bool,
+                              device=x.device)
+            kept_set = top.clone()
+            top.scatter_(1, r["top_e"], True)
+            kept_set.scatter_(1, r["top_e"], kept.view(t_, m.top_k))
+            rec = {"top_e": r["top_e"].cpu(), "top": top.cpu(),
+                   "kept": kept_set.cpu(), "logits": logits.cpu(),
+                   "h_norm": xf.norm(dim=-1).cpu(),
+                   "w_norm": float(params["router"].norm(dim=0).max())}
+        if replay is not None:
+            pin = replay[i]["top_e"].to(x.device)
+            moe_mod.top_k = lambda probs, k: (probs.gather(-1, pin), pin)
+        try:
+            y, aux = orig(params, x, m)
+        finally:
+            moe_mod.top_k = top_k
+        records.append(rec)
         return y, aux
 
     return spy
@@ -3772,7 +3807,13 @@ def bf16_step_against_f32(torch, cfg, batch, seed: int) -> dict:
     weights on ``batch``, at a constant ``CUT_LR``: the logits within
     ``CUT_LOGIT_REL``, the loss within 2 max|dz| of the two runs' logits,
     each leaf's gradient within ``CUT_GRAD_REL`` of its f32 norm, the
-    updated weights within ``adamw_step_bound``.  -> the readings."""
+    updated weights within ``adamw_step_bound``.  With MoE the f32 run
+    routes every token to the experts the bf16 run chose
+    (``route_spy``'s replay): a top-k whose margin is within round-off
+    may choose otherwise in f32, and a flip moves a token's output and its
+    router gradient by far more than any rounding; each such flip is
+    counted and its f32 margin held within round-off
+    (``routing_flips``).  -> the readings."""
     import dataclasses
 
     from repro_torch.convert import lm_params_to_reference, unstack_layers
@@ -3785,15 +3826,31 @@ def bf16_step_against_f32(torch, cfg, batch, seed: int) -> dict:
     cut32 = dataclasses.replace(cut, param_dtype="float32",
                                 compute_dtype="float32")
     runs = {}
+    routes = {"bf16": [], "f32": []}
     p16 = lm_params_to_reference(lm.init_params(cut, seed, device=DEVICE),
                                  cut)
     for name, c, p in (("bf16", cut, p16),
                        ("f32", cut32, tree_map(lambda t: t.float(), p16))):
-        with torch.no_grad():
-            z, _, _ = lm.forward(unstack_layers(p, c), batch, c)
-        m, g = loop.grad_and_metrics(p, batch, c)
-        opt = get_optimizer("adamw", CUT_LR)
-        p1, _, sm = loop.make_train_step(c, opt)(p, opt.init(p), batch)
+        if cfg.moe is not None:
+            # the f32 run routes each call's tokens where the bf16 run did
+            from repro_torch.models import moe as moe_mod
+
+            plain = moe_mod.moe_forward
+            moe_mod.moe_forward = route_spy(
+                torch, moe_mod, routes[name],
+                routes["bf16"] if name == "f32" else None)
+        try:
+            with torch.no_grad():
+                z, _, _ = lm.forward(unstack_layers(p, c), batch, c)
+            m, g = loop.grad_and_metrics(p, batch, c)
+            # the update in place on a copy of the weights: one copy of the
+            # f32 moments (deepseek-moe-16b's two layers: 12.8 GB)
+            opt = get_optimizer("adamw", CUT_LR, inplace=True)
+            p1, _, sm = loop.make_train_step(c, opt)(
+                tree_map(torch.clone, p), opt.init(p), batch)
+        finally:
+            if cfg.moe is not None:
+                moe_mod.moe_forward = plain
         runs[name] = {"z": z, "loss": float(sm["loss"]),
                       "grad_norm": float(sm["grad_norm"]),
                       "g": flatten_with_paths(g), "p1": flatten_with_paths(p1)}
@@ -3801,20 +3858,26 @@ def bf16_step_against_f32(torch, cfg, batch, seed: int) -> dict:
     a, b = runs["bf16"], runs["f32"]
     dz = float((a["z"] - b["z"]).abs().max())
     zmax = float(b["z"].abs().max())
-    del a["z"], b["z"]
     out = {"layers": CUT_LAYERS, "lr": CUT_LR, "logit_max_abs_diff": dz,
            "logit_bound": CUT_LOGIT_REL * zmax + F32_ATOL,
            "loss_bf16": a["loss"], "loss_f32": b["loss"],
            "loss_bound": 2 * dz}
+    if cfg.moe is not None:
+        flips = routing_flips(torch, routes["f32"], routes["bf16"],
+                              cfg.moe.top_k, U_BF16)
+        flips.pop("differs")
+        out["routing"] = dict(flips, calls=len(routes["bf16"]))
     if not dz <= out["logit_bound"]:
         raise AssertionError(f"cut bf16 logits off f32 by {dz:.4g} > "
                              f"{out['logit_bound']:.4g}")
+    del a["z"], b["z"]
     if not abs(a["loss"] - b["loss"]) <= 2 * dz:
         raise AssertionError(f"cut bf16 loss {a['loss']} vs f32 "
                              f"{b['loss']}: outside 2 max|dz| = {2 * dz:.4g}")
     p0 = flatten_with_paths(p16)
     s_a = min(1.0, 1.0 / max(a["grad_norm"], 1e-9))
     s_b = min(1.0, 1.0 / max(b["grad_norm"], 1e-9))
+    del p                              # the f32 copy of the weights
     grad_rel, upd, moved, unused = {}, 0.0, 0, []
     for k, gb in b["g"].items():
         ga = a["g"][k].float()
@@ -3826,11 +3889,17 @@ def bf16_step_against_f32(torch, cfg, batch, seed: int) -> dict:
                                  f"bf16 finite {bool(torch.isfinite(ga).all())}")
         else:
             grad_rel[k] = float((ga - gb).norm()) / norm
-        p1a, p1b = a["p1"][k].double(), b["p1"][k].double()
-        bound = adamw_step_bound(ga.double() * s_a, gb.double() * s_b, p1a,
-                                 p1b, CUT_LR, U_BF16)
-        upd = max(upd, float(((p1a - p1b).abs() / bound).max()))
-        moved += int((p1a != p0[k].double()).sum())
+        # in float64, a slice at a time (a whole stacked expert leaf's
+        # temporaries would not fit beside the two runs)
+        flat = [t.reshape(-1) for t in (ga, gb, a["p1"][k], b["p1"][k],
+                                        p0[k])]
+        for lo in range(0, flat[0].numel(), CHECK_CHUNK):
+            g16, g32, p1a, p1b, p00 = (t[lo:lo + CHECK_CHUNK].double()
+                                       for t in flat)
+            bound = adamw_step_bound(g16 * s_a, g32 * s_b, p1a, p1b, CUT_LR,
+                                     U_BF16)
+            upd = max(upd, float(((p1a - p1b).abs() / bound).max()))
+            moved += int((p1a != p00).sum())
     worst = max(grad_rel, key=grad_rel.get)
     out.update(grad_rel_worst=grad_rel[worst], grad_rel_worst_leaf=worst,
                grad_rel_median=float(np.median(list(grad_rel.values()))),
@@ -4428,11 +4497,11 @@ def vlm_phase(torch, seed: int = 0) -> dict:
     return out
 
 
-def mesh_phase(torch) -> dict:
-    """(c) ``tools/lm_ranks.py``'s work in one spawned NCCL rank per visible
-    card, up to ``MESH_RANKS_MAX``: qwen3-0.6b at full width and depth on
-    a (data, model) mesh -- (2, 2) on four cards, (1, 2) on two, (1, 1) on
-    one.  -> rank 0's numbers."""
+def mesh_phase(torch, argv=MESH_ARGS) -> dict:
+    """(c) ``tools/lm_ranks.py``'s work (``argv``; by default qwen3-0.6b at
+    full width and depth) in one spawned NCCL rank per visible card, up to
+    ``MESH_RANKS_MAX``, on a (data, model) mesh -- (2, 2) on four cards,
+    (1, 2) on two, (1, 1) on one.  -> rank 0's numbers."""
     import torch.multiprocessing as mp
 
     sys.path.insert(0, os.path.join(REPO, "tools"))
@@ -4444,7 +4513,7 @@ def mesh_phase(torch) -> dict:
         ctx = mp.start_processes(
             lm_ranks.spawned_rank,
             args=(world, os.path.join(tmp, "store"),
-                  MESH_ARGS + ["--ckpt-dir", os.path.join(tmp, "ckpt")],
+                  list(argv) + ["--ckpt-dir", os.path.join(tmp, "ckpt")],
                   out_path),
             nprocs=world, join=False, start_method="spawn")
         deadline = time.monotonic() + MESH_WAIT_S
@@ -4505,6 +4574,76 @@ def frontends_mesh_phase(torch, card) -> dict:
         f"{vs['request0_rel_err_vs_forward']:.3g}; (c) {m['summary']}")
     return out
 
+
+
+
+# ---------------------------------------------------------------------------
+# phase 18: MoE training through the mesh's dispatch
+# ---------------------------------------------------------------------------
+
+def moe_train_phase(torch, card, seed: int = 0) -> dict:
+    """Phase 18: ``deepseek-moe-16b`` at its published widths in bf16.
+    (a) ``bf16_step_against_f32`` cut to ``CUT_LAYERS`` layers on
+    ``batch_at`` data at 8 x 512 (the published capacity factor 1.25), the
+    f32 run routed where the bf16 one routed, the flips counted; (b)
+    ``tools/lm_ranks.py``'s work at ``MOE_TRAIN_LAYERS`` of 28 layers in
+    the spawned NCCL ranks of ``mesh_phase`` -- (1, 1) on one card, the MoE
+    layers through ``ShardedLM``'s dispatch: the f32 step cut to 2 layers
+    against one card's (at capacity factor E / k: no drops), AdamW steps
+    at 8 x 512 (step p50, tokens/s, peak, each step's drop fraction at
+    1.25, the loss), a checkpoint crossing meshes, the int8 mean.  Prints
+    one line; returns the numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t_phase = time.perf_counter()
+    cfg = get_config(MOE_TRAIN_ARCH)
+    moe = cfg.moe
+    if ((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.resolved_head_dim,
+         cfg.vocab_size, cfg.param_dtype),
+            (moe.num_experts, moe.top_k, moe.d_expert, moe.num_shared,
+             moe.capacity_factor)) != (
+            (28, 2048, 16, 128, 102_400, "bfloat16"), (64, 6, 1408, 2, 1.25)):
+        raise AssertionError(f"{MOE_TRAIN_ARCH} is not the published config")
+    dc = DataConfig(cfg.vocab_size, 512, 8, seed=seed)
+    batch = {"tokens": torch.from_numpy(batch_at(dc, 0)["tokens"])
+             .to(DEVICE)}
+    out = {"device_bytes_held_at_start": torch.cuda.memory_allocated(),
+           "device_bytes_reserved_at_start": torch.cuda.memory_reserved()}
+    t0 = time.perf_counter()
+    out["cut"] = bf16_step_against_f32(torch, cfg, batch, seed)
+    out["cut"]["s"] = time.perf_counter() - t0
+    del batch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["mesh"] = mesh_phase(torch, MOE_TRAIN_ARGS)
+    out["mesh"]["s"] = time.perf_counter() - t0
+    run = out["mesh"]["bf16"]
+    if run["layers"] != MOE_TRAIN_LAYERS or not run["drop_fractions"]:
+        raise AssertionError(f"phase 18 ran {run['layers']} layers, drop "
+                             f"fractions {run['drop_fractions']}")
+    if not all(np.isfinite(run["losses"])) or not all(
+            0.0 <= d < 1.0 for d in run["drop_fractions"]):
+        raise AssertionError(f"phase 18 losses {run['losses']}, drop "
+                             f"fractions {run['drop_fractions']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    ct, rt = out["cut"], out["cut"]["routing"]
+    say(f"phase 18 MoE training ({card}): (a) {MOE_TRAIN_ARCH} full width "
+        f"cut to {CUT_LAYERS} layers, one bf16 step vs f32 at 8 x 512, the "
+        f"f32 run routed as the bf16 one ({rt['flipped']} of "
+        f"{rt['tokens']} tokens would route apart in f32, each flip's "
+        f"margin within {rt['worst_margin_over_bound']:.3g} of its "
+        f"round-off bound): logits {ct['logit_max_abs_diff']:.4g} (bound "
+        f"{ct['logit_bound']:.4g}), loss "
+        f"{abs(ct['loss_bf16'] - ct['loss_f32']):.4g} (bound "
+        f"{ct['loss_bound']:.4g}), gradients worst "
+        f"{ct['grad_rel_worst']:.4g} of the f32 norm "
+        f"({ct['grad_rel_worst_leaf']}; median {ct['grad_rel_median']:.4g};"
+        f" bound {CUT_GRAD_REL:.4g}), updates "
+        f"{ct['update_worst_over_bound']:.3g} of bound; (b) "
+        f"{out['mesh']['summary']}; {out['seconds']:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -5216,6 +5355,10 @@ def main() -> int:
     # -- phase 17: the patch and frame frontends, training on a mesh ----------
     torch.cuda.empty_cache()
     report["frontends_mesh"] = frontends_mesh_phase(torch, card)
+
+    # -- phase 18: MoE training through the mesh's dispatch --------------------
+    torch.cuda.empty_cache()
+    report["moe_training"] = moe_train_phase(torch, card)
 
     # -- phase 7: the kernels line -------------------------------------------
     # Slice 1's kernels: ms per fit of cl-100k-1d8-l5.  The retrieval

@@ -98,7 +98,8 @@ class CheckpointManager:
 
     def save_async(self, step: int, tree, extra: dict | None = None,
                    shardings: dict | None = None, mesh=None):
-        """Copy ``tree`` to the host now; write it on the writer thread.
+        """Copy ``tree`` to the host now (before this returns, so the caller
+        may then update it in place); write it on the writer thread.
         With ``shardings`` the leaves are this rank's blocks on ``mesh``:
         every rank calls this, the leaves are gathered here
         (``ckpt.gather_to_host``), and rank 0 alone writes them."""

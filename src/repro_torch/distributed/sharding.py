@@ -300,6 +300,19 @@ def shard_leaf(full: torch.Tensor, spec, mesh, coords=None) -> torch.Tensor:
     return out.clone(memory_format=torch.contiguous_format)
 
 
+def batch_index(mesh) -> tuple[int, int]:
+    """-> (this rank's index among the ranks of the batch axes, their
+    count): (pod, data) row-major, the pod outermost; the rows of a global
+    batch a rank holds (``tensor_parallel.ShardedLM.local_batch``)."""
+    sizes = axis_sizes(mesh)
+    idx, n = 0, 1
+    for a in BATCH_AXES:
+        if sizes.get(a, 1) > 1:
+            idx = idx * sizes[a] + axis_index(mesh, a)
+            n *= sizes[a]
+    return idx, n
+
+
 def gather_leaf(block: torch.Tensor, spec, mesh) -> torch.Tensor:
     """The full leaf from every rank's block under ``spec``: an all-gather
     over each axis the spec splits a dim over (a collective: every rank of
@@ -314,4 +327,5 @@ def gather_leaf(block: torch.Tensor, spec, mesh) -> torch.Tensor:
 __all__ = ["LOGICAL_RULES", "SERVING_RULES", "BATCH_AXES", "axis_sizes",
            "spec_for_shape", "spec_axes", "make_constrainer",
            "param_shardings", "cache_shardings", "batch_shardings",
-           "entry_axes", "block_index", "shard_leaf", "gather_leaf"]
+           "entry_axes", "block_index", "shard_leaf", "batch_index",
+           "gather_leaf"]

@@ -35,11 +35,14 @@ its gradient all-reduced over it after the backward.  The loss of a rank
 is its share of the global mean (its positions' sum over the global
 count), so the sums over ranks are the reference's gradient.
 
-MoE layers are refused on more than one rank: the reference dispatches
-them through ``distributed/moe_ep.py`` when ``model > 1``, and with
-``data > 1`` only its GSPMD dispatch sorts all global tokens under one
-capacity, which a per-rank dispatch would change (ROADMAP.md section 1,
-item 8f).
+An MoE layer's FFN takes the dispatch the reference takes on the same
+mesh (``repro/models/lm.py:155-169``): with ``model > 1`` and the experts
+dividing it, the expert-parallel all-to-all (``moe_ep.moe_forward_ep``)
+on the blocks as they are split (the router gathered whole, its gradient
+summed over ``model``: each model peer routes its own tokens); otherwise
+the global dispatch (``moe_ep.moe_forward_global``: all global tokens
+under one capacity, as the reference's GSPMD ``moe_forward`` sorts them),
+its leaves gathered and computed alike on every model peer.
 """
 
 from __future__ import annotations
@@ -52,12 +55,13 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.convert import lm_params_to_reference, tree_from_flat
-from repro_torch.distributed.collectives import (all_gather_dim, all_reduce,
-                                                 axis_index, own_block,
-                                                 reduce_scatter_dim)
-from repro_torch.distributed.sharding import (BATCH_AXES, entry_axes,
-                                              axis_sizes, param_shardings,
-                                              shard_leaf, spec_axes)
+from repro_torch.distributed import moe_ep
+from repro_torch.distributed.collectives import (Enter, Gather, Leave,
+                                                 all_reduce, axis_index)
+from repro_torch.distributed.sharding import (BATCH_AXES, axis_sizes,
+                                              batch_index, entry_axes,
+                                              param_shardings, shard_leaf,
+                                              spec_axes)
 from repro_torch.models import frontends, lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.tree import (flatten_with_paths, tree_leaves, tree_paths,
@@ -67,53 +71,8 @@ NEG = -1e30
 
 
 # ---------------------------------------------------------------------------
-# collectives as autograd functions
+# the vocab-parallel loss
 # ---------------------------------------------------------------------------
-
-class _Gather(torch.autograd.Function):
-    """Forward: all-gather ``x`` along each ``(dim, axis)`` of ``plan`` in
-    turn.  Backward, in reverse: a reduce-scatter where the step sums
-    contributions over the axis (``reduce``), else this rank's block."""
-
-    @staticmethod
-    def forward(ctx, x, mesh, plan):
-        ctx.mesh, ctx.plan = mesh, plan
-        for dim, axis, _ in plan:
-            x = all_gather_dim(x, dim, mesh, axis)
-        return x
-
-    @staticmethod
-    def backward(ctx, g):
-        for dim, axis, reduce in reversed(ctx.plan):
-            g = reduce_scatter_dim(g, dim, ctx.mesh, axis) if reduce \
-                else own_block(g, dim, ctx.mesh, axis)
-        return g.contiguous(), None, None
-
-
-class _Enter(torch.autograd.Function):
-    """Identity forward; the gradient all-reduced over ``model``."""
-
-    @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return all_reduce(g.contiguous().clone(), ctx.mesh, "model"), None
-
-
-class _Leave(torch.autograd.Function):
-    """All-reduce over ``model`` forward; identity backward."""
-
-    @staticmethod
-    def forward(ctx, x, mesh):
-        return all_reduce(x.contiguous().clone(), mesh, "model")
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
 
 class _VocabParallelLogLik(torch.autograd.Function):
     """Per-position log-likelihood of ``labels`` from this rank's vocabulary
@@ -212,15 +171,21 @@ class Blocks:
 
 @dataclasses.dataclass(frozen=True)
 class LayerRegions:
-    """Which of a layer's mixer and FFN run tensor-parallel, and the two
-    boundary functions of a region."""
+    """Which of a layer's mixer and FFN run tensor-parallel, the two
+    boundary functions of a region, and an MoE layer's FFN on the mesh
+    (``moe(ffn_params, h) -> (y, aux)``; None without MoE)."""
     mixer: bool
     ffn: bool
     enter: Callable
     leave: Callable
+    moe: Optional[Callable] = None
 
 
-_KEPT, _PARTIAL, _GATHER = "kept", "partial", "gather"
+# a leaf's role where it is used: its model dim kept split, used whole
+# inside a region (gradient summed over model), gathered for replicated
+# compute, or handed on as the block it is (the expert-parallel leaves,
+# which moe_ep gathers itself)
+_KEPT, _PARTIAL, _GATHER, _BLOCK = "kept", "partial", "gather", "block"
 
 
 class ShardedLM:
@@ -233,12 +198,6 @@ class ShardedLM:
     def __init__(self, cfg: ModelConfig, mesh):
         self.cfg, self.mesh = cfg, mesh
         self.sizes = axis_sizes(mesh)
-        world = math.prod(self.sizes.values())
-        if cfg.moe is not None and world > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers on a mesh of {world} ranks need the "
-                f"expert-parallel dispatch (distributed/moe_ep.py, ROADMAP.md "
-                f"section 1, item 8f)")
         m = self.sizes.get("model", 1)
         self.model = m
         self.rank_in_model = axis_index(mesh, "model")
@@ -256,6 +215,11 @@ class ShardedLM:
             and cfg.d_ff % m == 0
         self.vocab_tp = m > 1 and cfg.vocab_size > 0 \
             and cfg.padded_vocab % m == 0
+        self.expert_parallel = cfg.moe is not None \
+            and moe_ep.applicable(cfg.moe, self.sizes)
+        if self.expert_parallel:
+            self.ep_specs = {"ffn/" + k: v for k, v in
+                             moe_ep.param_specs(cfg.moe, self.sizes).items()}
         self.layer_specs, self.roles, self.local_cfg = {}, {}, {}
         for i, t in enumerate(cfg.layer_pattern):
             if t not in self.layer_specs:
@@ -288,6 +252,18 @@ class ShardedLM:
                 role = _PARTIAL
         elif part == "ffn" and self.ffn_tp:
             role = _KEPT
+        elif part == "ffn" and self.expert_parallel:
+            if name == "router":
+                role = _PARTIAL
+            else:
+                role = _BLOCK
+                want = tuple(self.ep_specs[sub])
+                have = tuple(spec) + (None,) * (len(want) - len(spec))
+                if have != want:
+                    raise ValueError(
+                        f"{self.cfg.name}: {sub} is split {spec} on this "
+                        f"mesh, but the expert-parallel dispatch takes "
+                        f"{want} (a width does not divide its axis)")
         if role == _KEPT:
             dim = 0 if name in ("wo", "w_down", "bq", "bk", "bv") else 1
             assert spec[dim] == "model", (sub, spec)
@@ -300,7 +276,9 @@ class ShardedLM:
         over every axis its spec splits, but ``model`` for a leaf kept
         split (``role`` "kept"); a "partial" leaf (used inside a
         tensor-parallel region, whole) has its gradient summed over
-        ``model``."""
+        ``model``; a "block" leaf is returned as it is."""
+        if role == _BLOCK:
+            return block
         plan = []
         for dim, entry in enumerate(spec):
             for axis in reversed(entry_axes(entry)):
@@ -310,16 +288,16 @@ class ShardedLM:
                 reduce = axis in BATCH_AXES or (axis == "model"
                                                 and role == _PARTIAL)
                 plan.append((dim, axis, reduce))
-        x = _Gather.apply(block, self.mesh, tuple(plan)) if plan else block
+        x = Gather.apply(block, self.mesh, tuple(plan)) if plan else block
         if role == _PARTIAL and "model" not in spec_axes(spec):
-            x = _Enter.apply(x, self.mesh)
+            x = Enter.apply(x, self.mesh)
         return x
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
-        return _Enter.apply(x, self.mesh)
+        return Enter.apply(x, self.mesh)
 
     def leave(self, x: torch.Tensor) -> torch.Tensor:
-        return _Leave.apply(x, self.mesh)
+        return Leave.apply(x, self.mesh)
 
     def layer(self, lp: dict, layer_type: str):
         """A layer's blocks -> (its leaves as the layer computes with
@@ -338,11 +316,21 @@ class ShardedLM:
                     w = flat[sub]
                     w = w.unflatten(-1, (cfg.num_kv_heads, hd))
                     flat[sub] = w.index_select(w.dim() - 2, idx).flatten(-2)
+        moe = None
+        if cfg.moe is not None and "ffn" in lp:
+            moe = self._moe_ep if self.expert_parallel else self._moe_global
         regions = LayerRegions(mixer=mixer_tp,
                                ffn=self.ffn_tp and "ffn" in lp,
-                               enter=self.enter, leave=self.leave)
+                               enter=self.enter, leave=self.leave, moe=moe)
         lcfg = self.local_cfg.get("attn", cfg) if mixer_tp else cfg
         return tree_from_flat(flat), lcfg, regions
+
+    def _moe_ep(self, p: dict, h: torch.Tensor):
+        flat = flatten_with_paths(p)
+        return moe_ep.moe_forward_ep(flat, h, self.cfg.moe, self.mesh)
+
+    def _moe_global(self, p: dict, h: torch.Tensor):
+        return moe_ep.moe_forward_global(p, h, self.cfg.moe, self.mesh)
 
     # -- embedding, head, loss ------------------------------------------------
     def _vocab_lookup(self, table: torch.Tensor, tokens: torch.Tensor):
@@ -407,10 +395,7 @@ class ShardedLM:
     def local_batch(self, batch: dict) -> dict:
         """This rank's rows of a global batch: the batch split over the
         ranks of (pod, data), the first axis outermost."""
-        n, idx = 1, 0
-        for a in self.batch_axes():
-            idx = idx * self.sizes[a] + axis_index(self.mesh, a)
-            n *= self.sizes[a]
+        idx, n = batch_index(self.mesh)
         out = {}
         for k, v in batch.items():
             if v.shape[0] % n:

@@ -30,6 +30,12 @@ Fault tolerance:
   * ``StragglerMonitor`` flags slow steps; a step ends after a
     synchronize, so its time is the device's too.
 
+Each step is given the state the loop holds and the loop keeps what it
+returns: AdamW updates that state in place (``adamw(inplace=True)``), and
+a checkpoint copies it to the host before the next step.  On the card
+the logged metrics carry this rank's peak of allocated bytes since the
+first step began (``peak_bytes``).
+
 The parameters and the optimizer's state are kept in the reference's
 layout (layers stacked, ``repro_torch.train.loop``), so a checkpoint,
 ``{"params": ..., "opt": ...}``, is that state as it is, and either
@@ -127,9 +133,13 @@ def build(args, cfg=None) -> Run:
         cfg = dataclasses.replace(cfg, remat=args.remat)
     device, mesh, joined = _join_mesh(args, device)
     shard = ShardedLM(cfg, mesh) if mesh is not None else None
+    # the loop gives each step the state it holds and keeps only what the
+    # step returns, so AdamW writes its update into that state: one copy
+    # of the f32 moments, not two
+    donate = {"inplace": True} if args.optimizer == "adamw" else {}
     opt = get_optimizer(args.optimizer,
                         cosine_schedule(args.lr, args.warmup, args.steps),
-                        layout=shard and shard.layout)
+                        layout=shard and shard.layout, **donate)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = lm_params_to_reference(
@@ -245,6 +255,8 @@ def _loop(args, run: Run):
 
     mon = StragglerMonitor()
     history = []
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)   # the steps' own peak
     saved = None
     for step in range(start_step, args.steps):
         batch = {k: torch.from_numpy(v).to(device)
@@ -256,10 +268,15 @@ def _loop(args, run: Run):
         if step % args.log_every == 0 or step == args.steps - 1:
             m = {k: float(v) for k, v in metrics.items()}
             m.update(step=step, seconds=round(dt, 3))
+            if device.type == "cuda":
+                m["peak_bytes"] = torch.cuda.max_memory_allocated(device)
             history.append(m)
             if rank0:
+                moe = (f"  drop {m['drop_fraction']:.4f}  "
+                       f"lb {m['load_balance']:.4f}"
+                       if "drop_fraction" in m else "")
                 print(f"step {step:5d}  loss {m['loss']:.4f}  "
-                      f"gnorm {m.get('grad_norm', 0):.2f}  {dt:.2f}s",
+                      f"gnorm {m.get('grad_norm', 0):.2f}{moe}  {dt:.2f}s",
                       flush=True)
         if mgr:
             updates = step + 1               # what the state now holds

@@ -26,8 +26,9 @@ stacked by kind:
 ``forward`` returns the MoE layers' aux losses summed over the layers, as
 the reference's does.  Given ``shard`` (``repro_torch.distributed.
 tensor_parallel.ShardedLM``), ``forward`` runs on this rank's blocks of a
-(data, model) mesh: the hook gathers each layer's leaves at their use and
-wraps the tensor-parallel mixers and FFNs in their collectives.
+(data, model) mesh: the hook gathers each layer's leaves at their use,
+wraps the tensor-parallel mixers and FFNs in their collectives, and
+dispatches an MoE layer across the ranks (``distributed/moe_ep.py``).
 """
 
 from __future__ import annotations
@@ -169,7 +170,8 @@ def _apply_block(layer_params, x, positions, cfg: ModelConfig,
                  cache_len=None, rows=None, rope=None, tp=None):
     """Returns (x, new_cache, aux).  ``tp``: a sharded layer's
     tensor-parallel regions (``tensor_parallel.LayerRegions``): the mixer's
-    or the FFN's input enters its region and its output leaves it."""
+    or the FFN's input enters its region and its output leaves it; an MoE
+    FFN runs the mesh's dispatch (``tp.moe``)."""
     aux = {}
     h = rms_norm(x, layer_params["ln1"], cfg.norm_eps)
     if tp is not None and tp.mixer:
@@ -206,7 +208,9 @@ def _apply_block(layer_params, x, positions, cfg: ModelConfig,
     x = x + y
     if layer_type != "ssm" and "ffn" in layer_params:
         h = rms_norm(x, layer_params["ln2"], cfg.norm_eps)
-        if cfg.moe is not None:
+        if cfg.moe is not None and tp is not None and tp.moe is not None:
+            y, aux = tp.moe(layer_params["ffn"], h)
+        elif cfg.moe is not None:
             y, aux = moe_mod.moe_forward(layer_params["ffn"], h, cfg.moe)
         elif tp is not None and tp.ffn:
             y = tp.leave(mlp_forward(layer_params["ffn"], tp.enter(h)))

@@ -22,8 +22,8 @@ captured in a CUDA graph.  The reference's segment sum over the sorted
 choices is a fixed-order sum over each token's k choices here, in f32.
 
 Plain torch, as the reference is plain jnp: no kernel stands behind it.
-The reference's expert-parallel path (``repro/distributed/moe_ep.py``) is
-not ported; on one device the reference takes this path.
+On a mesh, ``repro_torch/distributed/moe_ep.py`` dispatches across the
+ranks; on one device the reference takes this path.
 """
 
 from __future__ import annotations
@@ -72,8 +72,9 @@ def route(logits: torch.Tensor, moe: MoEConfig, c: int) -> dict:
     softmax ``probs``, the normalized top-k ``top_p`` / ``top_e`` [T, k],
     the stable sort of the T*k choices by expert (``sort_idx``,
     ``sorted_e``, the source token ``token_of``), the per-expert ``counts``
-    [E], and for each sorted choice ``keep`` (within capacity ``c``) and its
-    buffer row ``slot`` (``e * c`` when dropped)."""
+    [E], and for each sorted choice its rank in its expert ``pos``,
+    ``keep`` (within capacity ``c``) and its buffer row ``slot`` (``e * c``
+    when dropped)."""
     t = logits.shape[0]
     k, e = moe.top_k, moe.num_experts
     probs = torch.softmax(logits, dim=-1)
@@ -90,8 +91,8 @@ def route(logits: torch.Tensor, moe: MoEConfig, c: int) -> dict:
                        torch.full_like(pos_in_e, e * c))
     return {"probs": probs, "top_p": top_p, "top_e": top_e,
             "sort_idx": sort_idx, "sorted_e": sorted_e,
-            "token_of": sort_idx // k, "counts": counts, "keep": keep,
-            "slot": slot}
+            "token_of": sort_idx // k, "counts": counts, "pos": pos_in_e,
+            "keep": keep, "slot": slot}
 
 
 def moe_forward(params: dict, x: torch.Tensor, moe: MoEConfig):
@@ -106,25 +107,7 @@ def moe_forward(params: dict, x: torch.Tensor, moe: MoEConfig):
     # --- router (f32 for numerics) ---
     logits = xf.to(torch.float32) @ params["router"]           # [T, E]
     r = route(logits, moe, c)
-
-    # --- sort-based dispatch: row e * c is the trash row of the drops ---
-    buf = x.new_zeros((e * c + 1, d))
-    buf.index_copy_(0, r["slot"], xf[r["token_of"]])
-    expert_in = buf[:e * c].view(e, c, d)
-
-    # --- batched per-expert GLU ---
-    gate = torch.bmm(expert_in, params["we_gate"])
-    up = torch.bmm(expert_in, params["we_up"])
-    out = torch.bmm(F.silu(gate) * up, params["we_down"])       # [E, C, D]
-
-    # --- combine: back to (token, choice) order, weighted, summed ---
-    out_flat = torch.cat([out.reshape(e * c, d), out.new_zeros((1, d))])
-    sorted_p = r["top_p"].reshape(t * k)[r["sort_idx"]].to(out.dtype)
-    contrib = out_flat[r["slot"]] * sorted_p[:, None]
-    unsorted = torch.empty_like(contrib).index_copy_(0, r["sort_idx"],
-                                                     contrib)
-    y = unsorted.view(t, k, d).to(torch.float32).sum(1)
-    y = y.to(x.dtype).reshape(b, s, d)
+    y = routed_experts(params, xf, r, c, moe).to(x.dtype).reshape(b, s, d)
 
     if moe.num_shared:
         y = y + mlp_forward(params["shared"], x)
@@ -141,4 +124,31 @@ def moe_forward(params: dict, x: torch.Tensor, moe: MoEConfig):
     return y, aux
 
 
-__all__ = ["init_moe", "capacity", "top_k", "route", "moe_forward"]
+def routed_experts(params: dict, xf: torch.Tensor, r: dict, c: int,
+                   moe: MoEConfig) -> torch.Tensor:
+    """The routed experts' output [T, D] in f32 for the tokens ``xf``
+    [T, D] dispatched by ``r`` (``route``) into ``c`` rows an expert."""
+    t, d = xf.shape
+    k, e = moe.top_k, moe.num_experts
+
+    # --- sort-based dispatch: row e * c is the trash row of the drops ---
+    buf = xf.new_zeros((e * c + 1, d))
+    buf.index_copy_(0, r["slot"], xf[r["token_of"]])
+    expert_in = buf[:e * c].view(e, c, d)
+
+    # --- batched per-expert GLU ---
+    gate = torch.bmm(expert_in, params["we_gate"])
+    up = torch.bmm(expert_in, params["we_up"])
+    out = torch.bmm(F.silu(gate) * up, params["we_down"])       # [E, C, D]
+
+    # --- combine: back to (token, choice) order, weighted, summed ---
+    out_flat = torch.cat([out.reshape(e * c, d), out.new_zeros((1, d))])
+    sorted_p = r["top_p"].reshape(t * k)[r["sort_idx"]].to(out.dtype)
+    contrib = out_flat[r["slot"]] * sorted_p[:, None]
+    unsorted = torch.empty_like(contrib).index_copy_(0, r["sort_idx"],
+                                                     contrib)
+    return unsorted.view(t, k, d).to(torch.float32).sum(1)
+
+
+__all__ = ["init_moe", "capacity", "top_k", "route", "moe_forward",
+           "routed_experts"]

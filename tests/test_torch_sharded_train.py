@@ -6,11 +6,14 @@ against the JAX reference's one-device step on the CPU.
 
 Gloo ranks are spawned with a ``FileStore`` in the test's directory (as
 ``tests/test_torch_distributed.py`` does), each spawn under a timeout: P =
-2 on meshes (1, 2) and (2, 1), P = 4 on (2, 2) and (1, 4).  On every mesh
+2 runs meshes (1, 2) and (2, 1) in turn, P = 4 runs (2, 2) and (1, 4).  On every mesh
 the reduced dense (qwen3), vlm (qwen2-vl), audio (hubert), ssm (mamba2)
-and hybrid (recurrentgemma) configs take the reference's weights and batch
-and run the sharded gradient and whole AdamW and Adafactor steps at
-microbatches 1 and 2; rank 0 gathers every leaf.  The (1, 4) mesh cuts
+and hybrid (recurrentgemma) configs take the reference's weights and
+batch and run the sharded gradient and whole AdamW and Adafactor steps at
+microbatches 1 and 2; rank 0 gathers every leaf.  The MoE configs
+(deepseek-moe-16b, kimi-k2-1t-a32b) run the same checks on the same
+meshes in ``tests/test_torch_sharded_moe.py``, with this file's
+machinery.  The (1, 4) mesh cuts
 qwen3's two KV heads (the gathered-``wk`` fallback).  Held: the loss
 within 1e-5 relative, every gathered gradient leaf within ``1e-4 *
 max|want| + 1e-5``, updated parameters within ``PERF.md`` section 2's step
@@ -18,10 +21,11 @@ bounds, the optimizer state within ``1e-4 * max|want| + 1e-9``.
 
 A checkpoint saved sharded at (2, 2) is restored at (1, 4) through
 ``restore_on_mesh`` and saved again, and restored in this process: the
-three digests are equal.  MoE is refused above one rank.  Eight ranks on
-(pod, data, model) = (2, 2, 2) run remat'd steps against the port's
-one-process step; ``launch.train`` under ``torchrun`` resumes on another
-mesh; ``tools/lm_ranks.py`` runs on two gloo ranks.
+three digests are equal.  Eight ranks on (pod, data, model) = (2, 2, 2)
+run remat'd steps against the port's one-process step, and reduced
+deepseek-moe-16b's forward against the reference's one-device logits;
+``launch.train`` under ``torchrun`` resumes on another mesh;
+``tools/lm_ranks.py`` runs on two gloo ranks.
 """
 
 import functools
@@ -74,10 +78,23 @@ def _batch(cfg):
     return out
 
 
+def _config(get, name):
+    """The reduced config of ``name``; ``"<arch>@cf<x>"`` is an MoE
+    config's at capacity factor x (a case of the gradient alone)."""
+    import dataclasses
+
+    arch, _, cf = name.partition("@cf")
+    cfg = get(arch).reduced()
+    if cf:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cf)))
+    return cfg
+
+
 @functools.lru_cache(maxsize=None)
 def reference(name):
     """-> (reference config, weights, numpy batch)."""
-    jcfg = j_get_config(name).reduced()
+    jcfg = _config(j_get_config, name)
     jp = jlm.init_params(jax.random.PRNGKey(0), jcfg)
     return jcfg, jp, _batch(jcfg)
 
@@ -108,10 +125,34 @@ def reference_step(name, opt_name, micro):
 # the ranks
 # ---------------------------------------------------------------------------
 
-def _rank_main(rank, world, store, shape, in_dir, out_dir, ckpt_in,
-               ckpt_out):
+def _rank_main(rank, world, store, plan, in_dir, out_dir, ckpt_dir):
+    """Every ``(mesh name, config names)`` of ``plan`` in turn on this
+    world's ranks, the results keyed by mesh; with ``ckpt_dir``, (2, 2)
+    saves the checkpoint that (1, 4) restores."""
     import torch.distributed as dist
 
+    from repro_torch.launch.mesh import make_mesh_for
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        out = {}
+        for mesh_name, names in plan:
+            mesh = make_mesh_for(world, MESHES[mesh_name][1],
+                                 device_type="cpu")
+            res = _mesh_work(mesh, names, in_dir, out_dir,
+                             ckpt_dir if mesh_name == "1x4" else None,
+                             ckpt_dir if mesh_name == "2x2" else None)
+            out.update({f"{mesh_name}/{k}": v for k, v in res.items()})
+        if rank == 0:
+            np.savez(os.path.join(out_dir, "rank0.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_work(mesh, names, in_dir, out_dir, ckpt_in, ckpt_out) -> dict:
+    """One mesh's work on this rank -> its results (rank 0's are kept)."""
     from repro_torch.checkpoint import ckpt
     from repro_torch.configs import get_config
     from repro_torch.convert import (lm_params_from_reference,
@@ -122,98 +163,92 @@ def _rank_main(rank, world, store, shape, in_dir, out_dir, ckpt_in,
                                                   shard_leaf)
     from repro_torch.distributed.tensor_parallel import (ShardedLM,
                                                          shard_tree)
-    from repro_torch.launch.mesh import make_mesh_for
     from repro_torch.train import loop
     from repro_torch.train import optimizers as opt_mod
     from repro_torch.tree import tree_leaves, tree_paths, tree_unflatten
 
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", store=dist.FileStore(store, world),
-                            rank=rank, world_size=world)
-    try:
-        mesh = make_mesh_for(world, shape[1], device_type="cpu")
-        out = {}
-        full = torch.arange(8 * 12 * 4, dtype=torch.float32).reshape(8, 12, 4)
-        for i, spec in enumerate(ROUND_TRIPS):
-            back = gather_leaf(shard_leaf(full, spec, mesh), spec, mesh)
-            out[f"roundtrip/{i}"] = float(torch.equal(back, full))
+    out = {}
+    full = torch.arange(8 * 12 * 4, dtype=torch.float32).reshape(8, 12, 4)
+    for i, spec in enumerate(ROUND_TRIPS):
+        back = gather_leaf(shard_leaf(full, spec, mesh), spec, mesh)
+        out[f"roundtrip/{i}"] = float(torch.equal(back, full))
 
-        def gathered(prefix, tree, specs):
-            for path, x in zip(tree_paths(tree), tree_leaves(tree)):
-                full = gather_leaf(x, specs[path], mesh)
-                out[f"{prefix}/{path}"] = full.double().numpy()
+    def gathered(prefix, tree, specs):
+        for path, x in zip(tree_paths(tree), tree_leaves(tree)):
+            full = gather_leaf(x, specs[path], mesh)
+            out[f"{prefix}/{path}"] = full.double().numpy()
 
-        for name in NAMES:
-            cfg = get_config(name).reduced()
-            with np.load(os.path.join(in_dir, f"{name}.npz")) as f:
-                stored = {k: f[k] for k in f.files}
-            params = lm_params_to_reference(lm_params_from_reference(
-                tree_from_flat(stored, "param/"), cfg, device="cpu"), cfg)
-            batch = {k[6:]: torch.from_numpy(v) for k, v in stored.items()
-                     if k.startswith("batch/")}
-            shard = ShardedLM(cfg, mesh)
-            blocks = shard_tree(params, shard.param_specs, mesh)
-            m, g = loop.grad_and_metrics(blocks, shard.local_batch(batch),
-                                         cfg, chunk=CHUNK, shard=shard)
-            gathered(f"grad/{name}", g, shard.param_specs)
-            for k, v in m.items():
-                out[f"metric/{name}/grad/{k}"] = float(v)
-            # microbatch 2's accumulated gradient, as the step forms it
-            halves = [loop.grad_and_metrics(
-                blocks, shard.local_batch({k: v[i * B // 2:(i + 1) * B // 2]
-                                           for k, v in batch.items()}),
-                cfg, chunk=CHUNK, shard=shard)[1] for i in range(2)]
-            acc = [a.to(torch.float32) + b.to(torch.float32) for a, b in
-                   zip(tree_leaves(halves[0]), tree_leaves(halves[1]))]
-            gathered(f"gacc/{name}", tree_unflatten(g, [a / 2 for a in acc]),
-                     shard.param_specs)
-            for opt_name in OPTS:
-                opt = opt_mod.get_optimizer(opt_name, LR,
-                                            layout=shard.layout)
-                state_specs = param_shardings(
-                    opt_mod.get_optimizer(opt_name, LR).init(params), mesh)
-                for micro in MICRO:
-                    step = loop.make_train_step(cfg, opt, microbatches=micro,
-                                                chunk=CHUNK, shard=shard)
-                    p1, s1, m = step(blocks, opt.init(blocks), batch)
-                    key = f"{name}/{opt_name}/{micro}"
-                    gathered(f"param/{key}", p1, shard.param_specs)
-                    gathered(f"state/{key}", s1, state_specs)
-                    for k, v in m.items():
-                        out[f"metric/{key}/{k}"] = float(v)
-                    if ckpt_out and (name, opt_name, micro) == (
-                            "qwen3-0.6b", "adamw", 1):
-                        tree = {"params": p1, "opt": s1}
-                        ckpt.save(ckpt_out, 1, tree, {"step": 1},
-                                  shardings=param_shardings(
-                                      {"params": params,
-                                       "opt": opt.init(params)}, mesh),
-                                  mesh=mesh)
-        if ckpt_in:
-            from repro_torch.models import lm
+    for name in names:
+        cfg = _config(get_config, name)
+        with np.load(os.path.join(in_dir, f"{name}.npz")) as f:
+            stored = {k: f[k] for k in f.files}
+        params = lm_params_to_reference(lm_params_from_reference(
+            tree_from_flat(stored, "param/"), cfg, device="cpu"), cfg)
+        batch = {k[6:]: torch.from_numpy(v) for k, v in stored.items()
+                 if k.startswith("batch/")}
+        shard = ShardedLM(cfg, mesh)
+        blocks = shard_tree(params, shard.param_specs, mesh)
+        m, g = loop.grad_and_metrics(blocks, shard.local_batch(batch),
+                                     cfg, chunk=CHUNK, shard=shard)
+        gathered(f"grad/{name}", g, shard.param_specs)
+        for k, v in m.items():
+            out[f"metric/{name}/grad/{k}"] = float(v)
+        if "@" in name:
+            continue
+        # microbatch 2's accumulated gradient, as the step forms it
+        halves = [loop.grad_and_metrics(
+            blocks, shard.local_batch({k: v[i * B // 2:(i + 1) * B // 2]
+                                       for k, v in batch.items()}),
+            cfg, chunk=CHUNK, shard=shard)[1] for i in range(2)]
+        acc = [a.to(torch.float32) + b.to(torch.float32) for a, b in
+               zip(tree_leaves(halves[0]), tree_leaves(halves[1]))]
+        gathered(f"gacc/{name}", tree_unflatten(g, [a / 2 for a in acc]),
+                 shard.param_specs)
+        for opt_name in OPTS:
+            opt = opt_mod.get_optimizer(opt_name, LR,
+                                        layout=shard.layout)
+            state_specs = param_shardings(
+                opt_mod.get_optimizer(opt_name, LR).init(params), mesh)
+            for micro in MICRO:
+                step = loop.make_train_step(cfg, opt, microbatches=micro,
+                                            chunk=CHUNK, shard=shard)
+                p1, s1, m = step(blocks, opt.init(blocks), batch)
+                key = f"{name}/{opt_name}/{micro}"
+                gathered(f"param/{key}", p1, shard.param_specs)
+                gathered(f"state/{key}", s1, state_specs)
+                for k, v in m.items():
+                    out[f"metric/{key}/{k}"] = float(v)
+                if ckpt_out and (name, opt_name, micro) == (
+                        "qwen3-0.6b", "adamw", 1):
+                    tree = {"params": p1, "opt": s1}
+                    ckpt.save(ckpt_out, 1, tree, {"step": 1},
+                              shardings=param_shardings(
+                                  {"params": params,
+                                   "opt": opt.init(params)}, mesh),
+                              mesh=mesh)
+    if ckpt_in:
+        from repro_torch.models import lm
 
-            cfg = get_config("qwen3-0.6b").reduced()
-            abstract = lm_params_to_reference(lm.abstract_params(cfg), cfg)
-            opt = opt_mod.get_optimizer("adamw", LR)
-            like = {"params": abstract, "opt": opt.init(abstract)}
-            tree, extra = restore_on_mesh(ckpt_in, 1, like, mesh, "cpu")
-            specs = param_shardings(like, mesh)
-            assert extra == {"step": 1}
-            ckpt.save(os.path.join(out_dir, "resaved"), 1, tree, extra,
-                      shardings=specs, mesh=mesh)
-        if rank == 0:
-            np.savez(os.path.join(out_dir, "rank0.npz"), **out)
-    finally:
-        dist.destroy_process_group()
+        cfg = get_config("qwen3-0.6b").reduced()
+        abstract = lm_params_to_reference(lm.abstract_params(cfg), cfg)
+        opt = opt_mod.get_optimizer("adamw", LR)
+        like = {"params": abstract, "opt": opt.init(abstract)}
+        tree, extra = restore_on_mesh(ckpt_in, 1, like, mesh, "cpu")
+        specs = param_shardings(like, mesh)
+        assert extra == {"step": 1}
+        ckpt.save(os.path.join(out_dir, "resaved"), 1, tree, extra,
+                  shardings=specs, mesh=mesh)
+    return out
 
 
-def _spawn(shape, tmp_path, in_dir, ckpt_in=None, ckpt_out=None):
-    world = shape[0] * shape[1]
+def _spawn(world, plan, tmp_path, in_dir, ckpt_dir=None):
+    """``plan``'s meshes on ``world`` spawned gloo ranks -> (rank 0's
+    results keyed by mesh, the output directory)."""
     out_dir = tmp_path / "out"
     out_dir.mkdir()
     ctx = mp.start_processes(
-        _rank_main, args=(world, str(tmp_path / "store"), shape, str(in_dir),
-                          str(out_dir), ckpt_in, ckpt_out),
+        _rank_main, args=(world, str(tmp_path / "store"), plan, str(in_dir),
+                          str(out_dir), ckpt_dir),
         nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + SPAWN_TIMEOUT_S
     while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
@@ -226,12 +261,10 @@ def _spawn(shape, tmp_path, in_dir, ckpt_in=None, ckpt_out=None):
         return {k: f[k] for k in f.files}, out_dir
 
 
-@pytest.fixture(scope="module")
-def inputs(tmp_path_factory):
+def write_inputs(d, names):
     """The reference's weights and batch of each config, as npz files the
     ranks read (they import no JAX)."""
-    d = tmp_path_factory.mktemp("inputs")
-    for name in NAMES:
+    for name in names:
         _, jp, batch = reference(name)
         np.savez(d / f"{name}.npz",
                  **{"param/" + k: v for k, v in ref_flat(jp).items()},
@@ -240,23 +273,38 @@ def inputs(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def ranks(inputs, tmp_path_factory):
-    """mesh name -> rank 0's gathered results, each mesh spawned once;
-    (2, 2) saves the checkpoint that (1, 4) restores."""
+def inputs(tmp_path_factory):
+    return write_inputs(tmp_path_factory.mktemp("inputs"), NAMES)
+
+
+def world_of(mesh_name) -> int:
+    return MESHES[mesh_name][0] * MESHES[mesh_name][1]
+
+
+def spawned(tmp_path_factory, inputs, names_of, ckpt_dir=None):
+    """-> get(mesh name) -> (rank 0's results on that mesh, the output
+    directory): the meshes of one world size spawned once, together."""
     cache = {}
-    ckpt_dir = tmp_path_factory.mktemp("ckpt")
 
     def get(mesh_name):
-        if mesh_name == "1x4":
-            get("2x2")
-        if mesh_name not in cache:
-            tmp = tmp_path_factory.mktemp(f"mesh{mesh_name}")
-            cache[mesh_name] = _spawn(
-                MESHES[mesh_name], tmp, inputs,
-                ckpt_in=str(ckpt_dir) if mesh_name == "1x4" else None,
-                ckpt_out=str(ckpt_dir) if mesh_name == "2x2" else None)
-        return cache[mesh_name]
+        world = world_of(mesh_name)
+        if world not in cache:
+            plan = tuple((m, names_of(m)) for m in MESHES
+                         if world_of(m) == world)
+            cache[world] = _spawn(world, plan, tmp_path_factory.mktemp(
+                f"world{world}"), inputs, ckpt_dir)
+        res, out_dir = cache[world]
+        return _prefixed(res, mesh_name), out_dir
 
+    return get
+
+
+@pytest.fixture(scope="module")
+def ranks(inputs, tmp_path_factory):
+    """mesh name -> rank 0's gathered results; (2, 2) saves the checkpoint
+    that (1, 4) restores, in the same four ranks."""
+    ckpt_dir = tmp_path_factory.mktemp("ckpt")
+    get = spawned(tmp_path_factory, inputs, lambda m: NAMES, str(ckpt_dir))
     get.ckpt_dir = ckpt_dir
     return get
 
@@ -273,7 +321,12 @@ def _prefixed(res, prefix):
 @pytest.mark.parametrize("mesh_name", MESHES)
 @pytest.mark.parametrize("name", NAMES)
 def test_sharded_gradients_match_reference(name, mesh_name, ranks):
-    res, _ = ranks(mesh_name)
+    check_gradients(ranks(mesh_name)[0], name)
+
+
+def check_gradients(res, name):
+    """Rank 0's gathered gradient and metrics of ``name`` against the
+    reference's one-device gradient."""
     want_m, want = reference_grads(name)
     got = _prefixed(res, f"grad/{name}")
     assert set(got) == set(want)
@@ -290,9 +343,12 @@ def test_sharded_gradients_match_reference(name, mesh_name, ranks):
 @pytest.mark.parametrize("name", NAMES)
 def test_sharded_step_matches_reference(name, mesh_name, opt_name, micro,
                                         ranks):
+    check_step(ranks(mesh_name)[0], name, opt_name, micro)
+
+
+def check_step(res, name, opt_name, micro):
     """Metrics, updated parameters (the reference's whole step, within the
     step bounds) and the optimizer's state, gathered."""
-    res, _ = ranks(mesh_name)
     key = f"{name}/{opt_name}/{micro}"
     want_p, want_s, want_m = reference_step(name, opt_name, micro)
     got_m = _prefixed(res, f"metric/{key}")
@@ -383,17 +439,6 @@ def test_gather_leaf_inverts_shard_leaf(mesh_name, ranks):
     assert all(float(v) == 1.0 for v in got.values()), got
 
 
-def test_moe_is_refused_above_one_rank():
-    from repro_torch.configs import get_config
-    from repro_torch.distributed.tensor_parallel import ShardedLM
-
-    cfg = get_config("deepseek-moe-16b").reduced()
-    for mesh in ({"data": 2, "model": 1}, {"data": 1, "model": 2},
-                 {"pod": 2, "data": 1, "model": 1}):
-        with pytest.raises(NotImplementedError, match="8f"):
-            ShardedLM(cfg, mesh)
-
-
 # ---------------------------------------------------------------------------
 # the launcher and the tool under torchrun
 # ---------------------------------------------------------------------------
@@ -461,15 +506,18 @@ def test_lm_ranks_tool_runs_on_the_host(tmp_path):
 # ---------------------------------------------------------------------------
 
 REMAT_CASES = (("qwen3-0.6b", "full"), ("hubert-xlarge", "dots"))
+POD_FORWARD = "deepseek-moe-16b"
 
 
-def _pod_rank_main(rank, world, store, out_dir):
+def _pod_rank_main(rank, world, store, out_dir, in_path):
     import dataclasses
 
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
-    from repro_torch.convert import lm_params_to_reference
+    from repro_torch.convert import (lm_params_from_reference,
+                                     lm_params_to_reference, tree_from_flat,
+                                     unstack_layers)
     from repro_torch.distributed.sharding import gather_leaf
     from repro_torch.distributed.tensor_parallel import (ShardedLM,
                                                          shard_tree)
@@ -506,13 +554,65 @@ def _pod_rank_main(rank, world, store, out_dir):
                 out[f"{name}/param/{path}"] = gather_leaf(
                     x, shard.param_specs[path], mesh).double().numpy()
             out[f"{name}/loss"] = float(m["loss"])
+        # the reference's weights and batch of the MoE forward: the
+        # logits, gathered over the batch and vocabulary blocks
+        cfg = get_config(POD_FORWARD).reduced()
+        with np.load(in_path) as f:
+            stored = {k: f[k] for k in f.files}
+        params = lm_params_to_reference(lm_params_from_reference(
+            tree_from_flat(stored, "param/"), cfg, device="cpu"), cfg)
+        shard = ShardedLM(cfg, mesh)
+        blocks = shard_tree(params, shard.param_specs, mesh)
+        batch = shard.local_batch({"tokens": torch.from_numpy(
+            stored["tokens"])})
+        with torch.no_grad():
+            logits, _, _ = lm.forward(unstack_layers(blocks, cfg), batch,
+                                      cfg, chunk=CHUNK, shard=shard)
+        spec = (("pod", "data"), None, "model" if shard.vocab_tp else None)
+        out[f"{POD_FORWARD}/logits"] = gather_leaf(logits, spec,
+                                                   mesh).double().numpy()
         if rank == 0:
             np.savez(os.path.join(out_dir, "rank0.npz"), **out)
     finally:
         dist.destroy_process_group()
 
 
-def test_remat_and_pods_match_one_process(tmp_path):
+@functools.lru_cache(maxsize=None)
+def pod_forward_reference():
+    """The reference's test_full_model_distributed_matches_single_device
+    inputs and its one-device logits."""
+    jcfg = j_get_config(POD_FORWARD).reduced()
+    jp = jlm.init_params(jax.random.PRNGKey(0), jcfg)
+    tokens = jax.random.randint(jax.random.PRNGKey(1), (8, 16), 0,
+                                jcfg.vocab_size)
+    want, _, _ = jlm.forward(jp, {"tokens": tokens}, jcfg, mode="train",
+                             chunk=CHUNK)
+    return jp, np.asarray(tokens), np.asarray(want)
+
+
+@pytest.fixture(scope="module")
+def pod_ranks(tmp_path_factory):
+    """Eight ranks on (pod, data, model) = (2, 2, 2), spawned once."""
+    tmp = tmp_path_factory.mktemp("pods")
+    jp, tokens, _ = pod_forward_reference()
+    np.savez(tmp / "moe.npz", tokens=tokens,
+             **{"param/" + k: v for k, v in ref_flat(jp).items()})
+    world = 8
+    ctx = mp.start_processes(
+        _pod_rank_main, args=(world, str(tmp / "store"), str(tmp),
+                              str(tmp / "moe.npz")),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + SPAWN_TIMEOUT_S
+    while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+        if time.monotonic() >= deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            pytest.fail(f"{world} ranks did not finish")
+    with np.load(tmp / "rank0.npz") as f:
+        return {k: f[k] for k in f.files}
+
+
+def test_remat_and_pods_match_one_process(pod_ranks):
     """Remat (a layer's gathers redone in its recompute) on a (pod, data,
     model) = (2, 2, 2) mesh, the batch split over pod x data: an
     Adafactor step equals the one-process step of the port (itself held
@@ -526,18 +626,7 @@ def test_remat_and_pods_match_one_process(tmp_path):
     from repro_torch.train import optimizers as opt_mod
     from repro_torch.tree import flatten_with_paths
 
-    world = 8
-    ctx = mp.start_processes(
-        _pod_rank_main, args=(world, str(tmp_path / "store"), str(tmp_path)),
-        nprocs=world, join=False, start_method="spawn")
-    deadline = time.monotonic() + SPAWN_TIMEOUT_S
-    while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
-        if time.monotonic() >= deadline:
-            for proc in ctx.processes:
-                proc.kill()
-            pytest.fail(f"{world} ranks did not finish")
-    with np.load(tmp_path / "rank0.npz") as f:
-        got = {k: f[k] for k in f.files}
+    got = pod_ranks
     for name, _ in REMAT_CASES:
         cfg = get_config(name).reduced()
         params = lm_params_to_reference(lm.init_params(cfg, 0, device="cpu"),
@@ -557,3 +646,16 @@ def test_remat_and_pods_match_one_process(tmp_path):
             bound = adafactor_bound(v - p0[k], p0[k], rel=1e-4)
             err = np.abs(got[f"{name}/param/{k}"] - v)
             assert np.all(err <= bound), (name, k)
+
+
+def test_full_model_distributed_matches_single_device(pod_ranks):
+    """The reference's test of the same name, on the port: reduced
+    deepseek-moe-16b's train-mode logits on (pod, data, model) = (2, 2,
+    2) -- the MoE layers through the expert-parallel dispatch, the expert
+    FFN width split over ``pod`` -- within 5e-4 of the reference's
+    one-device forward."""
+    _, _, want = pod_forward_reference()
+    got = pod_ranks[f"{POD_FORWARD}/logits"]
+    assert got.shape == want.shape
+    err = float(np.abs(got - want).max())
+    assert err < 5e-4, err

@@ -310,6 +310,29 @@ def test_optimizer_steps_match_reference(name, kw):
         assert int(ts["step"]) == step + 1
 
 
+@pytest.mark.parametrize("chunk", [1 << 26, 8])
+def test_adamw_inplace_equals_the_pure_update(chunk, monkeypatch):
+    """``adamw(inplace=True)`` writes the pure update's bits into the
+    trees it is given (a bf16 and an f32 leaf, a 0-d leaf, and with
+    ``chunk`` 8 the leading dims cut into slices), three steps."""
+    monkeypatch.setattr(opt_mod, "INPLACE_CHUNK", chunk)
+    lr = opt_mod.cosine_schedule(1e-2, 2, 10)
+    pure, inpl = (opt_mod.adamw(lr), opt_mod.adamw(lr, inplace=True))
+    params = _torch_tree(_toy(0))
+    params["h"] = params["w"].to(torch.bfloat16)
+    params["z"] = torch.tensor(0.5)
+    donated = tree_map(torch.clone, params)
+    sp, si = pure.init(params), inpl.init(donated)
+    for step in range(3):
+        grads = tree_map(lambda x: x * (step + 1.5), params)
+        params, sp, mp_ = pure.update(grads, sp, params)
+        out, si_out, mi = inpl.update(grads, si, donated)
+        assert out is donated and si_out is si
+        for a, b in zip(tree_leaves((params, sp)), tree_leaves((out, si))):
+            assert torch.equal(a, b)
+        assert float(mi["grad_norm"]) == float(mp_["grad_norm"])
+
+
 # ---------------------------------------------------------------------------
 # loss and gradients of every family
 # ---------------------------------------------------------------------------

@@ -1,26 +1,36 @@
 #!/usr/bin/env python3
 """The LM's train step on a (data, model) mesh across real ranks, one card a
-rank: ``qwen3-0.6b`` at its published widths and depth.
+rank: ``qwen3-0.6b`` (or ``--arch``) at its published widths and depth.
 
     torchrun --standalone --nproc-per-node 4 tools/lm_ranks.py
+    torchrun --standalone --nproc-per-node 4 tools/lm_ranks.py \\
+        --arch deepseek-moe-16b --model-parallel 4 --remat full
     torchrun --standalone --nproc-per-node 2 tools/lm_ranks.py \\
         --device cpu --layers 2 --batch 4 --seq 32 --steps 2 --reduced
 
 On the card every rank joins NCCL on its own GPU (``LOCAL_RANK``); with
 ``--device cpu`` the ranks join gloo.  The mesh is (2, 2) on four ranks,
 (1, 2) on two and (1, 1) on one (``--model-parallel`` overrides the model
-axis).  Each rank:
+axis).  An MoE config's layers take the mesh's dispatch
+(``distributed/moe_ep.py``: expert-parallel where the experts split over
+``model``).  Each rank:
 
 1. f32, the config cut to ``--check-layers`` layers: one AdamW step of the
    sharded step (``tensor_parallel.ShardedLM``) against the one-device step
    of the same seeded weights and batch on rank 0's device: the loss within
    1e-5 relative, every gathered gradient leaf within 1e-4 * max|want| +
-   1e-5, the updated parameters within ``adamw_step_bound``;
-2. bf16 at full depth: ``--steps`` AdamW steps at B x S = ``--batch`` x
-   ``--seq`` on ``batch_at`` data, the step's p50 (host clock, each step
-   ending in a device sync and a barrier), tokens/s, each rank's peak
-   device memory, and one profiled step's device time split into the
-   collectives' (NCCL) kernels and the rest;
+   1e-5, the updated parameters within ``adamw_step_bound``.  An MoE
+   config runs it at capacity factor E / k, where neither dispatch drops
+   (the expert-parallel drops differ from one device's by design; the CPU
+   tests hold them against the reference's own), and says so;
+2. bf16 at full depth (or ``--layers``): ``--steps`` AdamW steps at B x S =
+   ``--batch`` x ``--seq`` on ``batch_at`` data (the update in place, the
+   state donated), the step's p50 (host clock, each step ending in a
+   device sync and a barrier), tokens/s beside the FLOP bound of the
+   active parameters, each rank's peak device memory, with MoE each step's
+   ``drop_fraction`` at the config's capacity factor, and one profiled
+   step's device time split into the collectives' (NCCL) kernels and the
+   rest;
 3. a checkpoint of the bf16 parameters saved sharded on this mesh, restored
    on another mesh of the same ranks through ``elastic.restore_on_mesh``
    ((1, 4) from (2, 2), (2, 1) from (1, 2); (1, 1) again on one rank) and
@@ -55,6 +65,12 @@ import torch.distributed as dist  # noqa: E402
 
 ARCH = "qwen3-0.6b"
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
+CHECK_CHUNK = 1 << 25          # elements a float64 check takes at once
+# (layers, d_model, d_ff, vocab) of the published configs the tool runs, and
+# an MoE config's (experts, top-k, expert width, shared, capacity factor)
+PUBLISHED = {"qwen3-0.6b": ((28, 1024, 3072, 151_936), None),
+             "deepseek-moe-16b": ((28, 2048, 1408, 102_400),
+                                  (64, 6, 1408, 2, 1.25))}
 
 
 def mesh_shape(world: int, model_parallel=None) -> tuple:
@@ -65,6 +81,7 @@ def mesh_shape(world: int, model_parallel=None) -> tuple:
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=ARCH, choices=sorted(PUBLISHED))
     ap.add_argument("--device", default=None,
                     help="'cpu' for gloo; default: one card a rank (NCCL)")
     ap.add_argument("--model-parallel", type=int, default=None)
@@ -78,6 +95,9 @@ def parse_args(argv=None):
                     help="cut the bf16 run to this depth (default: all)")
     ap.add_argument("--reduced", action="store_true",
                     help="the reduced config (a host-sized run)")
+    ap.add_argument("--remat", default=None,
+                    help="the bf16 run's remat policy (default: the "
+                         "config's)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
@@ -110,6 +130,9 @@ def f32_check(args, cfg, mesh, device) -> dict:
 
     cut = dataclasses.replace(cfg, num_layers=args.check_layers,
                               param_dtype="float32", compute_dtype="float32")
+    if cfg.moe is not None:
+        cut = dataclasses.replace(cut, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
     lr = 1e-2
     params = lm_params_to_reference(
         lm.init_params(cut, args.seed, device=device), cut)
@@ -121,7 +144,10 @@ def f32_check(args, cfg, mesh, device) -> dict:
     blocks = shard_tree(params, shard.param_specs, mesh)
     m_s, g_s = loop.grad_and_metrics(blocks, shard.local_batch(batch), cut,
                                      shard=shard)
-    opt = get_optimizer("adamw", lr, layout=shard.layout)
+    # the steps update in place: a second copy of the f32 moments of
+    # deepseek-moe-16b's two layers (12.8 GB) would not fit beside the
+    # one-device step's on rank 0's card
+    opt = get_optimizer("adamw", lr, layout=shard.layout, inplace=True)
     p1_s, _, sm = loop.make_train_step(cut, opt, shard=shard)(
         blocks, opt.init(blocks), batch)
     g_full = _gather_tree(g_s, shard.param_specs, mesh)
@@ -131,7 +157,7 @@ def f32_check(args, cfg, mesh, device) -> dict:
            "seq": args.check_seq}
     if dist.get_rank() == 0:
         m_1, g_1 = loop.grad_and_metrics(params, batch, cut)
-        opt1 = get_optimizer("adamw", lr)
+        opt1 = get_optimizer("adamw", lr, inplace=True)
         p1_1, _, m1 = loop.make_train_step(cut, opt1)(
             params, opt1.init(params), batch)
         g_1, p1_1 = flatten_with_paths(g_1), flatten_with_paths(p1_1)
@@ -148,16 +174,31 @@ def f32_check(args, cfg, mesh, device) -> dict:
             bound = 1e-4 * float(want.abs().max()) + 1e-5
             grad_worst = max(grad_worst,
                              float((got - want).abs().max()) / bound)
-            b = adamw_step_bound(got.double() * s_a, want.double() * s_b,
-                                 p_full[k].double(), p1_1[k].double(), lr)
-            upd_worst = max(upd_worst, float(
-                ((p_full[k].double() - p1_1[k].double()).abs() / b).max()))
+            # in float64 a slice at a time: a whole stacked expert leaf's
+            # temporaries would not fit beside the two steps' state
+            flat = [t.reshape(-1) for t in (got, want, p_full[k], p1_1[k])]
+            for lo in range(0, flat[0].numel(), CHECK_CHUNK):
+                ga, gb, pa, pb = (t[lo:lo + CHECK_CHUNK].double()
+                                  for t in flat)
+                b = adamw_step_bound(ga * s_a, gb * s_b, pa, pb, lr)
+                upd_worst = max(upd_worst,
+                                float(((pa - pb).abs() / b).max()))
         if not grad_worst <= 1.0:
             raise AssertionError(f"sharded gradients at {grad_worst:.3g} "
                                  f"of their bound")
         if not upd_worst <= 1.0:
             raise AssertionError(f"sharded updates at {upd_worst:.3g} of "
                                  f"their bound")
+        if cut.moe is not None:
+            drops = (float(sm["drop_fraction"]), float(m1["drop_fraction"]))
+            if drops != (0.0, 0.0):
+                raise AssertionError(f"the f32 check's capacity factor "
+                                     f"{cut.moe.capacity_factor:.4g} still "
+                                     f"drops: {drops}")
+            out.update(capacity_factor=cut.moe.capacity_factor,
+                       drop_fraction=drops[0],
+                       note="MoE at capacity factor E / k: nothing drops "
+                            "on either dispatch")
         out.update(loss=float(sm["loss"]), loss_one_device=float(m1["loss"]),
                    loss_rel_diff=loss_rel,
                    grad_norm=float(sm["grad_norm"]),
@@ -207,21 +248,28 @@ def bf16_run(args, cfg, mesh, device) -> tuple:
 
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    if args.remat:
+        cfg = dataclasses.replace(cfg, remat=args.remat)
     shard = ShardedLM(cfg, mesh)
     full = lm_params_to_reference(lm.init_params(cfg, args.seed,
                                                  device=device), cfg)
     n = sum(x.numel() for x in tree_leaves(full))
+    active = n
+    if cfg.moe is not None:       # the routed experts a token does not use
+        moe = cfg.moe
+        active -= (cfg.num_layers * 3 * (moe.num_experts - moe.top_k)
+                   * cfg.d_model * moe.d_expert)
     blocks = shard_tree(full, shard.param_specs, mesh)
     del full
     if device.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
     opt = get_optimizer("adamw", cosine_schedule(3e-4, 2, args.steps),
-                        layout=shard.layout)
+                        layout=shard.layout, inplace=True)
     state = opt.init(blocks)
     step = loop.make_train_step(cfg, opt, shard=shard)
     dc = DataConfig(cfg.vocab_size, args.seq, args.batch, seed=args.seed)
-    times, losses = [], []
+    times, losses, drops = [], [], []
     for i in range(args.steps):
         batch = {"tokens": torch.from_numpy(batch_at(dc, i)["tokens"])
                  .to(device)}
@@ -232,6 +280,8 @@ def bf16_run(args, cfg, mesh, device) -> tuple:
         dist.barrier()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
+        if "drop_fraction" in m:
+            drops.append(float(m["drop_fraction"]))
     peak = torch.cuda.max_memory_allocated(device) \
         if device.type == "cuda" else 0
     acts = [torch.profiler.ProfilerActivity.CPU]
@@ -255,14 +305,20 @@ def bf16_run(args, cfg, mesh, device) -> tuple:
     tokens = args.batch * args.seq
     attn = 3 * 2 * 2 * args.batch * cfg.num_heads * args.seq ** 2 \
         * cfg.resolved_head_dim * cfg.num_layers / 2
-    flop = 6 * n * tokens + attn
+    flop = 6 * active * tokens + attn
     bound_ms = flop / (BF16_OPS_PER_S * dist.get_world_size()) * 1e3
+    split["collective_share"] = split["collective_ms"] / max(
+        split["device_ms"], 1e-9)
     del state
-    return ({"layers": cfg.num_layers, "batch": args.batch, "seq": args.seq,
-             "steps": args.steps, "param_elements": n, "step_ms": times,
+    return ({"arch": cfg.name, "layers": cfg.num_layers, "remat": cfg.remat,
+             "batch": args.batch, "seq": args.seq,
+             "steps": args.steps, "param_elements": n,
+             "active_param_elements": active, "step_ms": times,
              "step_ms_p50": p50, "tokens_per_s": tokens / (p50 / 1e3),
              "flop_bound_ms_all_ranks": bound_ms,
              "bound_share": bound_ms / p50, "losses": losses,
+             "drop_fractions": drops,
+             "capacity_factor": cfg.moe and cfg.moe.capacity_factor,
              "peak_bytes_by_rank": [float(x) for x in every],
              "profiled_step": split}, blocks, shard.param_specs)
 
@@ -297,15 +353,25 @@ def checkpoint_cross(args, cfg, blocks, specs, mesh, device, tmp) -> dict:
               mesh=mesh2)
     cross_s = time.perf_counter() - t0
     del tree
+
+    def digest(d):
+        with open(os.path.join(d, "step_0000000001", "manifest.json")) as f:
+            return json.load(f)["digest"]
+
+    # each copy read and removed before the next is written: at
+    # deepseek-moe-16b's full width a copy is 34 GB
+    digests = [digest(first), digest(second)]
+    dist.barrier()
+    last = [None]
     if dist.get_rank() == 0:                 # and whole, in one process
+        shutil.rmtree(second, ignore_errors=True)
         tree, extra = ckpt.restore(first, 1, like, device)
         ckpt.save(whole, 1, tree, extra)
         del tree
-    dist.barrier()
-    digests = []
-    for d in (first, second, whole):
-        with open(os.path.join(d, "step_0000000001", "manifest.json")) as f:
-            digests.append(json.load(f)["digest"])
+        last = [digest(whole)]
+        shutil.rmtree(whole, ignore_errors=True)
+    dist.broadcast_object_list(last, src=0)
+    digests.append(last[0])
     if len(set(digests)) != 1:
         raise AssertionError(f"checkpoint digests differ across meshes: "
                              f"{digests}")
@@ -353,13 +419,16 @@ def rank_work(args, device) -> dict:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
             = False
-    cfg = get_config(ARCH)
+    cfg = get_config(args.arch)
+    widths, experts = PUBLISHED[args.arch]
+    moe = cfg.moe and (cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.d_expert,
+                       cfg.moe.num_shared, cfg.moe.capacity_factor)
     if args.reduced:
         cfg = dataclasses.replace(cfg.reduced(), param_dtype="bfloat16",
                                   compute_dtype="bfloat16")
-    elif (cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size) != \
-            (28, 1024, 3072, 151_936):
-        raise AssertionError(f"{ARCH} is not the published config")
+    elif ((cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size), moe) != \
+            (widths, experts):
+        raise AssertionError(f"{args.arch} is not the published config")
     data, model = mesh_shape(world, args.model_parallel)
     mesh = make_mesh_for(world, model, device_type=device.type)
     out = {"world": world, "mesh": [data, model],
@@ -390,20 +459,29 @@ def summary(out: dict) -> str:
     c, b, k, q = (out["f32_check"], out["bf16"], out["checkpoint"],
                   out["compressed"])
     split = b["profiled_step"]
+    moe_check = (f" at capacity factor {c['capacity_factor']:.4g} (no drops)"
+                 if "capacity_factor" in c else "")
+    moe_run = (f", drop fraction {b['drop_fractions'][0]:.4f} -> "
+               f"{b['drop_fractions'][-1]:.4f} at capacity factor "
+               f"{b['capacity_factor']}" if b["drop_fractions"] else "")
     return (f"lm_ranks: {out['world']} ranks over {out['backend']}, mesh "
-            f"(data, model) = {tuple(out['mesh'])}; f32 step cut to "
-            f"{c['layers']} layers vs one device: loss rel "
-            f"{c['loss_rel_diff']:.3g}, gradients {c['grad_worst_over_bound']:.3g}"
-            f" of bound, updates {c['update_worst_over_bound']:.3g} of bound; "
-            f"bf16 {b['layers']} layers B={b['batch']} x S={b['seq']}: step "
+            f"(data, model) = {tuple(out['mesh'])}, {b['arch']}; f32 step "
+            f"cut to {c['layers']} layers vs one device{moe_check}: loss rel "
+            f"{c['loss_rel_diff']:.3g}, gradients "
+            f"{c['grad_worst_over_bound']:.3g} of bound, updates "
+            f"{c['update_worst_over_bound']:.3g} of bound; "
+            f"bf16 {b['layers']} layers B={b['batch']} x S={b['seq']} (remat "
+            f"{b['remat']}): step "
             f"p50 {b['step_ms_p50']:.1f} ms, {b['tokens_per_s']:,.0f} tok/s, "
             f"FLOP bound over the ranks {b['flop_bound_ms_all_ranks']:.2f} ms "
             f"(share {b['bound_share']:.3f}), peak by rank "
             f"{[round(p / 1e9, 2) for p in b['peak_bytes_by_rank']]} GB, a "
             f"profiled step ({split['wall_ms']:.1f} ms) busy "
             f"{split['busy_ms']:.1f} ms, kernels {split['compute_ms']:.1f} "
-            f"ms and collectives {split['collective_ms']:.1f} ms; loss "
-            f"{b['losses'][0]:.4f} -> {b['losses'][-1]:.4f}; checkpoint "
+            f"ms and collectives {split['collective_ms']:.1f} ms (share "
+            f"{split['collective_share']:.3f}); loss "
+            f"{b['losses'][0]:.4f} -> {b['losses'][-1]:.4f}{moe_run}; "
+            f"checkpoint "
             f"{tuple(k['saved_on'])} -> {tuple(k['restored_on'])} and whole: "
             f"digests equal; "
             f"int8 mean over {q['data_ranks']} data ranks off by "
