@@ -19,7 +19,7 @@ paths on the paper's 10k-node SBM and on the ``cl-100k-1d8-l5`` stand-in
   full probe held equal to brute force and fused to staged;
 * out-of-core streaming (phase 10): ``synth_to_disk`` writes
   ``cl-100k-1d8-l5`` (10 M undirected entries) and a scale file (2 M nodes,
-  50 M entries) as ``.geeb``; ``fit_transform_file`` streams them through
+  20 M entries) as ``.geeb``; ``fit_transform_file`` streams them through
   the pinned-staging prefetch and the window fold, held against the
   in-memory ``cuda`` fit of ``load_file`` under all 8 settings (and SciPy),
   prefetch depth 0 against depth 2, the scale file against the in-memory
@@ -92,10 +92,19 @@ paths on the paper's 10k-node SBM and on the ``cl-100k-1d8-l5`` stand-in
   ``deepseek-moe-16b`` at its published widths in bf16, one step against
   an f32 step cut to 2 layers (the f32 run routed as the bf16 one, each
   token that would route apart counted and its margin held),
-  then ``tools/lm_ranks.py``'s work at 4 of 28 layers in the same spawned
+  then ``tools/lm_ranks.py``'s work at 2 of 28 layers in the same spawned
   ranks, the MoE layers through ``ShardedLM``'s dispatch (expert-parallel
   where the experts split over ``model``): AdamW steps at 8 x 512 with
-  each step's drop fraction at the published capacity factor 1.25.
+  each step's drop fraction at the published capacity factor 1.25;
+* the dry-run and the serving layout (phase 19): (a) phase 17's spawned
+  rank also prefills (``ShardedLM.prefill``) and decodes
+  (``distributed/serving.py::ServingLM``) ``qwen3-0.6b`` on its mesh
+  against the one-device ``decode_step`` (f32 at 2 layers, bf16 at 28);
+  (b) ``repro_torch.launch.dryrun`` in a process of its own, started
+  before phase 14 and read here: phase 16's step traced on a fake group
+  of one, its reckoned peak held against phase 16's measured peak and its
+  counted FLOPs against phase 16's closed form, and two production cells
+  traced on a fake 16 x 16 group.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; phase 11 counts its own checks apart, phase 12 its
@@ -149,9 +158,10 @@ REPLACES = {
 }
 # the one PyTorch call timed beside a kernel as its yardstick (phase 6)
 LIBRARY = {"row_norm": "F.normalize", "gee_spmm": "torch.sparse.mm"}
-# the streaming path (phase 10): a file of 2 M nodes, 50 M undirected
-# entries and 5 classes (48 windows of the default 1,048,576 entries)
-SCALE_SPEC = ("scale-2m-50m", 2_000_000, 50_000_000, 5)
+# the streaming path (phase 10): a file of 2 M nodes, 20 M undirected
+# entries and 5 classes (20 windows of the default 1,048,576 entries; 50 M
+# and 48 windows until the dry-run's phase joined the script's time limit)
+SCALE_SPEC = ("scale-2m-20m", 2_000_000, 20_000_000, 5)
 # the retrieval path (phase 8): vertex-id queries, flushes of 64, top 10
 N_QUERIES = 4096
 FLUSH = 64
@@ -162,10 +172,10 @@ TOP_K = 10
 # sparse_torch refits of the mutated graph, and the kill-and-recover
 # stream's SBM and batches
 PARITY_NODES = 2000
-PARITY_BATCHES = 32
+PARITY_BATCHES = 16
 STREAM_DATASET = "cl-100k-1d8-l5"
 STREAM_BATCHES = 256
-STREAM_ALL_ON_S = 45.0
+STREAM_ALL_ON_S = 35.0         # an all-on batch takes ~3.6 s on the H100
 REFIT_REPS = 3
 KILL_NODES = 2000
 KILL_BATCHES = 24
@@ -268,13 +278,13 @@ ROUTER_FLIP_SLACK = 2.0
 # B x S (S = 1,024 would hold ~4x the masked schedule's f32 attention
 # blocks, ~90 GB by PERF.md's reckoning: over the card), its AdamW steps and
 # cosine schedule, the remat run's steps; the launcher's kill-and-resume
-# run (reduced, in bf16, a checkpoint every 4 of 48 steps) and its wait.
+# run (reduced, in bf16, a checkpoint every 4 of 16 steps) and its wait.
 TRAIN_FIXTURE = "tests/torch_fixtures/lm_train_reduced.npz"
 TRAIN_FIXTURE_LR, TRAIN_FIXTURE_CHUNK = 1e-3, 8
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 20
 TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
 REMAT_STEPS, ADAFACTOR_STEPS = 3, 3
-KILL_ARGS = ["--arch", LM_ARCH, "--steps", "48", "--batch", "8", "--seq",
+KILL_ARGS = ["--arch", LM_ARCH, "--steps", "16", "--batch", "8", "--seq",
              "128", "--ckpt-interval", "4", "--log-every", "50"]
 # the launcher's main on the reduced config in bf16 (its checkpoints then
 # hold bf16 leaves), given KILL_ARGS
@@ -336,7 +346,7 @@ VLM_PROMPT, VLM_NEW = (4, 12), (8, 16)
 # the two runs' added
 VLM_BF16_PAIR_REL = 2 * 2.0 ** -8 * (6 * VLM_LAYERS) ** 0.5
 MESH_RANKS_MAX, MESH_WAIT_S = 4, 420
-MESH_ARGS = ["--steps", "6", "--batch", "8", "--seq", "512"]
+MESH_ARGS = ["--steps", "6", "--batch", "8", "--seq", "512", "--serve-check"]
 # Phase 18: deepseek-moe-16b training at its published widths through the
 # mesh's MoE dispatch, cut in depth to fit one 80 GB card.  A layer is
 # 587.8 M elements (64 experts of 3 x 2,048 x 1,408, attention 4 x 2,048^2,
@@ -345,10 +355,54 @@ MESH_ARGS = ["--steps", "6", "--batch", "8", "--seq", "512"]
 # ~8.2 GB a layer and 5.9 GB for the embedding and head, plus the
 # activations at 8 x 512 tokens.  4 layers read a 42.93 GB peak on the
 # H100 (PERF.md section 6), ~8.6 GB a layer with its activations; 6 layers
-# (58.04 GB) fit too, but the whole script must end within its time limit.
-MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "deepseek-moe-16b", 4
+# (58.04 GB) fit too, but the whole script must end within its time limit,
+# so the run is cut to 2.
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "deepseek-moe-16b", 2
 MOE_TRAIN_ARGS = ["--arch", MOE_TRAIN_ARCH, "--layers", str(MOE_TRAIN_LAYERS),
                   "--steps", "6", "--batch", "8", "--seq", "512"]
+
+
+# Phase 19: the dry-run and the serving layout.  (b) traces phase 16's
+# step (B x S = TRAIN_BATCH x TRAIN_SEQ, mesh (1, 1), AdamW, remat none and
+# full) and DRYRUN_CELLS on the production 16 x 16 group, in a process of
+# its own (a fake process group cannot share one with phase 12's and 17's
+# NCCL groups) started before phase 14, so its host work overlaps the LM
+# phases.  The reckoned peak within DRYRUN_PEAK_REL of phase 16's
+# max_memory_allocated (the caching allocator's, against MemTracker's sum
+# of live tensors), the counted FLOPs within DRYRUN_FLOP_REL of phase
+# 16's closed form as the port computes it (the weights' 6 N per token
+# and the masked schedule's whole S x S, forward and backward: matmul_flop
+# + 2 attn_causal).  Remat's recompute is counted apart (the remat run's
+# count less the plain run's) and held above zero and at most one forward
+# of the layers: torch's checkpoint ends a recompute once the tensors the
+# backward saved are back, so a layer's last product (w_down's) is not
+# redone.
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k"), ("deepseek-moe-16b",
+                                             "decode_32k"))
+DRYRUN_PEAK_REL, DRYRUN_FLOP_REL = 0.25, 0.02
+DRYRUN_WAIT_S = 900
+DRYRUN_MAIN = """
+import json, sys
+from repro_torch.configs import ShapeSpec, get_config
+from repro_torch.launch import dryrun
+arch, batch, seq, cells, path = json.loads(sys.argv[1])
+out = {"phase_16": {}, "cells": []}
+shape = ShapeSpec("phase_16", "train", seq, batch)
+with dryrun.fake_world(1):
+    mesh = dryrun.fake_mesh((1, 1), ("data", "model"))
+    for remat in (get_config(arch).remat, "full"):
+        r = dryrun.trace_cell(arch, shape, mesh, remat=remat, microbatches=1,
+                              optimizer="adamw", opt_inplace=False)
+        out["phase_16"][remat] = {"memory": r["memory"], "flops": r["flops"],
+                                  "collectives": len(r["records"])}
+args = dryrun.parse_args([])
+with dryrun.production_world() as mesh:
+    for a, sh in cells:
+        out["cells"].append(dryrun.run_cell(a, sh, mesh, "single_pod_16x16",
+                                            args))
+with open(path, "w") as f:
+    json.dump(out, f)
+"""
 
 
 def say(line: str) -> None:
@@ -2140,7 +2194,7 @@ def sharded_phase(torch, card, all_kernels, graphs, prepared, tmp,
               "sbm-10k .geeb P=1": window_plane_bytes(sbm_path, 1),
               "cl-100k-1d8-l5 .geeb P=1": window_plane_bytes(
                   stream["cl_path"], 1),
-              "scale-2m-50m .geeb P=1": window_plane_bytes(
+              f"{SCALE_SPEC[0]} .geeb P=1": window_plane_bytes(
                   stream["scale_path"], 1)}
     skipped = {name: f"plane of {b / 2**30:.1f} GiB on the card (budget "
                      f"{PLANE_BUDGET_BYTES / 2**30:.0f} GiB)"
@@ -2366,7 +2420,7 @@ def sharded_phase(torch, card, all_kernels, graphs, prepared, tmp,
         + "); vs the "
         f"in-memory cuda fit, 8 settings each: "
         + "; ".join(f"{k} {fmt_err([v])}" for k, v in errs.items())
-        + "; scale-2m-50m streamed sharded (median of 3, host clock) "
+        + f"; {SCALE_SPEC[0]} streamed sharded (median of 3, host clock) "
         + ", ".join(f"{tag} {v['host_ms_median_of_3']:.1f} ms (gee_chunked "
                     f"in turn {v['chunked_host_ms_median_of_3']:.1f} ms, in "
                     f"phase 10 {v['chunked_host_ms_median_of_3_phase_10']:.1f}"
@@ -4578,6 +4632,125 @@ def frontends_mesh_phase(torch, card) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 19: the dry-run and the serving layout
+# ---------------------------------------------------------------------------
+
+def start_dryrun(tmp: str):
+    """Phase 19 (b)'s process, started ahead (``DRYRUN_MAIN``) -> (the
+    process, its output path, its log path, the start time)."""
+    path = os.path.join(tmp, "dryrun_phase.json")
+    log = open(os.path.join(tmp, "dryrun_phase.log"), "w")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_MAIN, json.dumps(
+            [LM_ARCH, TRAIN_BATCH, TRAIN_SEQ, DRYRUN_CELLS, path])],
+        env=env, stdout=log, stderr=subprocess.STDOUT, cwd=tmp)
+    return proc, path, log, time.perf_counter()
+
+
+def dryrun_phase(torch, card, started, training: dict, mesh: dict) -> dict:
+    """Phase 19: (a) phase 17's mesh serve check, read back; (b) the
+    dry-run's process joined and its reckonings held (``DRYRUN_*``)."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    out = {}
+    serve = mesh.get("serve")
+    if not serve or serve["f32"]["layers"] != CUT_LAYERS \
+            or serve["bf16"]["layers"] != get_config(LM_ARCH).num_layers:
+        raise AssertionError(f"phase 19 (a): no mesh serve check: {serve}")
+    for k in ("f32", "bf16"):
+        if not serve[k]["worst_over_bound"] <= 1.0:
+            raise AssertionError(f"phase 19 (a) {k}: {serve[k]}")
+    out["a"] = dict(serve, mesh=mesh["mesh"], backend=mesh["backend"])
+
+    proc, path, log, t_start = started
+    try:
+        proc.wait(timeout=max(DRYRUN_WAIT_S - (time.perf_counter()
+                                               - t_start), 1.0))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    if proc.returncode != 0:
+        with open(log.name) as f:
+            raise AssertionError(f"phase 19 (b): the dry-run failed "
+                                 f"(rc {proc.returncode}):\n"
+                                 f"{f.read()[-3000:]}")
+    with open(path) as f:
+        dry = json.load(f)
+    out["dryrun_s"] = time.perf_counter() - t_start
+    cfg = get_config(LM_ARCH)
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    n = training["b"]["param_elements"]
+    attn_causal = 3 * 2 * 2 * b * cfg.num_heads * s * s \
+        * cfg.resolved_head_dim * cfg.num_layers / 2
+    matmul_flop = 6 * n * b * s
+    as_done = matmul_flop + 2 * attn_causal
+    layers = n - cfg.padded_vocab * cfg.d_model - cfg.d_model
+    recompute_want = 2 * layers * b * s + 2 * attn_causal / 3
+    plain, full = dry["phase_16"][cfg.remat], dry["phase_16"]["full"]
+    recompute = full["flops"] - plain["flops"]
+    checks = {
+        "peak_" + cfg.remat: (plain["memory"]["peak_bytes"],
+                              training["b"]["peak_bytes"], DRYRUN_PEAK_REL),
+        "peak_full": (full["memory"]["peak_bytes"],
+                      training["remat"]["peak_bytes"], DRYRUN_PEAK_REL),
+        "flops": (plain["flops"], as_done, DRYRUN_FLOP_REL)}
+    out["b"] = {"recompute_flops": {
+        "reckoned": recompute, "forward_of_the_layers": recompute_want,
+        "ratio": recompute / recompute_want}}
+    if not 0 < recompute <= recompute_want:
+        raise AssertionError(f"phase 19 (b): remat's recompute {recompute} "
+                             f"FLOPs, not in (0, {recompute_want}]")
+    for key, (got, want, rel) in checks.items():
+        ratio = got / want
+        out["b"][key] = {"reckoned": got, "measured_or_closed_form": want,
+                         "ratio": ratio, "rel": rel}
+        if not abs(ratio - 1) <= rel:
+            raise AssertionError(f"phase 19 (b) {key}: reckoned {got} vs "
+                                 f"{want} (ratio {ratio:.4f}, limit "
+                                 f"{rel:.0%})")
+    out["b"]["collectives_at_1x1"] = plain["collectives"]
+    out["cells"] = []
+    for rec in dry["cells"]:
+        if rec["status"] != "ok":
+            raise AssertionError(f"phase 19 (b) {rec['arch']} x "
+                                 f"{rec['shape']}: {rec.get('error')}")
+        out["cells"].append({k: rec[k] for k in (
+            "arch", "shape", "mesh_tag", "status", "memory",
+            "flops_per_device_raw", "num_collectives", "seconds_trace")}
+            | {"wire_bytes": rec["collectives"]["total_wire_bytes"]})
+    out["seconds"] = time.perf_counter() - t_phase
+    a, bb = out["a"], out["b"]
+    say(f"phase 19 dry-run and serving layout ({card}): (a) {LM_ARCH} "
+        f"prefill + decode on the ({', '.join(map(str, a['mesh']))}) mesh "
+        f"over {a['backend']} vs one device: f32 {a['f32']['layers']} "
+        f"layers {a['f32']['worst_over_bound']:.3g} of bound, bf16 "
+        f"{a['bf16']['layers']} layers {a['bf16']['worst_over_bound']:.3g} "
+        f"of bound; (b) phase 16's step reckoned on a fake group of one "
+        f"(a reckoning, not a time): peak {cfg.remat} "
+        f"{bb['peak_' + cfg.remat]['reckoned'] / 1e9:.2f} GB vs measured "
+        f"{bb['peak_' + cfg.remat]['measured_or_closed_form'] / 1e9:.2f} GB "
+        f"({bb['peak_' + cfg.remat]['ratio']:.3f}), remat full "
+        f"{bb['peak_full']['reckoned'] / 1e9:.2f} vs "
+        f"{bb['peak_full']['measured_or_closed_form'] / 1e9:.2f} GB "
+        f"({bb['peak_full']['ratio']:.3f}); FLOPs {bb['flops']['ratio']:.4f} "
+        f"of matmul_flop + 2 attn_causal, remat's recompute "
+        f"{bb['recompute_flops']['ratio']:.4f} of a forward of the layers; "
+        + "; ".join(f"{c['arch']} x {c['shape']} on 16 x 16: {c['status']}, "
+                    f"{c['flops_per_device_raw']:.3e} FLOPs, "
+                    f"{c['memory']['peak_bytes'] / 1e9:.2f} GB peak, "
+                    f"{c['num_collectives']} collectives, "
+                    f"{c['wire_bytes']:.3e} wire bytes (traced in "
+                    f"{c['seconds_trace']} s)" for c in out["cells"])
+        + f"; the dry-run process, started {out['dryrun_s']:.0f} s "
+        f"before this phase's end, ran beside phases 14-18")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 18: MoE training through the mesh's dispatch
 # ---------------------------------------------------------------------------
 
@@ -4644,6 +4817,34 @@ def moe_train_phase(torch, card, seed: int = 0) -> dict:
         f"{ct['update_worst_over_bound']:.3g} of bound; (b) "
         f"{out['mesh']['summary']}; {out['seconds']:.1f} s")
     return out
+
+
+def late_phases(torch, card, report: dict, dry) -> dict:
+    """Phases 14-18 into ``report``, then phase 19 (``dry``: its dry-run
+    process, started before them) -> phase 19's numbers."""
+    # -- phase 14: LM serving at full width ------------------------------------
+    torch.cuda.empty_cache()
+    report["lm"] = lm_phase(torch, card)
+
+    # -- phase 15: the MoE, SSM and hybrid decoders at full width ---------------
+    torch.cuda.empty_cache()
+    report["families"] = families_phase(torch, card)
+
+    # -- phase 16: training at full width ----------------------------------------
+    torch.cuda.empty_cache()
+    report["training"] = train_phase(torch, card)
+
+    # -- phase 17: the patch and frame frontends, training on a mesh ----------
+    torch.cuda.empty_cache()
+    report["frontends_mesh"] = frontends_mesh_phase(torch, card)
+
+    # -- phase 18: MoE training through the mesh's dispatch --------------------
+    torch.cuda.empty_cache()
+    report["moe_training"] = moe_train_phase(torch, card)
+
+    # -- phase 19: the dry-run and the serving layout ---------------------------
+    return dryrun_phase(torch, card, dry, report["training"],
+                        report["frontends_mesh"]["mesh"])
 
 
 def main() -> int:
@@ -5339,26 +5540,18 @@ def main() -> int:
     report["autotune"] = autotune_phase(torch, card, kernels, rkernels,
                                         captured, rcaptured, fit, graphs)
 
-    # -- phase 14: LM serving at full width ------------------------------------
     del captured, rcaptured, prepared
-    torch.cuda.empty_cache()
-    report["lm"] = lm_phase(torch, card)
+    # -- phase 19 (b), started here: the dry-run beside phases 14-18 ----------
+    dry_tmp = tempfile.TemporaryDirectory()
+    dry = start_dryrun(dry_tmp.name)
+    try:
+        report["dryrun"] = late_phases(torch, card, report, dry)
+    finally:
+        if dry[0].poll() is None:
+            dry[0].kill()
+            dry[0].wait()
+        dry_tmp.cleanup()
 
-    # -- phase 15: the MoE, SSM and hybrid decoders at full width ---------------
-    torch.cuda.empty_cache()
-    report["families"] = families_phase(torch, card)
-
-    # -- phase 16: training at full width ----------------------------------------
-    torch.cuda.empty_cache()
-    report["training"] = train_phase(torch, card)
-
-    # -- phase 17: the patch and frame frontends, training on a mesh ----------
-    torch.cuda.empty_cache()
-    report["frontends_mesh"] = frontends_mesh_phase(torch, card)
-
-    # -- phase 18: MoE training through the mesh's dispatch --------------------
-    torch.cuda.empty_cache()
-    report["moe_training"] = moe_train_phase(torch, card)
 
     # -- phase 7: the kernels line -------------------------------------------
     # Slice 1's kernels: ms per fit of cl-100k-1d8-l5.  The retrieval

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 import shutil
 import tempfile
@@ -84,16 +85,67 @@ def _write_leaf(path: str, arr: np.ndarray) -> None:
         f.write(arr.tobytes())
 
 
-def gather_to_host(tree, shardings: dict, mesh) -> dict:
-    """``{path: host array}`` of a sharded tree: each leaf, this rank's
-    block under ``shardings[path]``, all-gathered over the mesh and copied
-    to the host, one at a time in path order (every rank of the mesh
-    calls it)."""
-    from repro_torch.distributed.sharding import gather_leaf
+def _host_array(t: torch.Tensor) -> np.ndarray:
+    """A fresh CPU tensor as a host array, its memory shared."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16_RECORD)
+    return t.numpy()
 
+
+def gather_to_host(tree, shardings: dict, mesh) -> dict:
+    """``{path: host array}`` of a sharded tree on rank 0, ``{}`` on every
+    other rank (every rank of the mesh calls it; the mesh spans the
+    default group).  Each leaf is this rank's block under
+    ``shardings[path]``; leaf by leaf in path order, the ranks holding its
+    distinct blocks (coordinate 0 along every axis the spec does not split)
+    send them to rank 0, which copies each into the leaf's host array at
+    its place.  So one host holds the whole state, and no card holds more
+    than its own blocks and one received (an all-gather would put the
+    whole leaf on every card: a 28-layer deepseek-moe-16b's f32 moment is
+    19.25 GiB)."""
+    import itertools
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import (axis_sizes, block_index,
+                                                  entry_axes, spec_axes)
+
+    names = tuple(mesh.mesh_dim_names)
+    sizes = axis_sizes(mesh)
+    grid = mesh.mesh
+    me = dist.get_rank()
     leaves = flatten_with_paths(tree)
-    return {name: to_host(gather_leaf(leaves[name], shardings[name], mesh))
-            for name in sorted(leaves)}
+    host = {}
+    for name in sorted(leaves):
+        block = leaves[name].detach().contiguous()
+        spec = tuple(shardings[name]) + (None,) * (block.dim()
+                                                   - len(shardings[name]))
+        split = set(spec_axes(spec))
+        senders = []
+        for idx in itertools.product(*(range(n) for n in grid.shape)):
+            coords = dict(zip(names, idx))
+            if not any(coords[a] for a in names if a not in split):
+                senders.append((int(grid[idx]), coords))
+        if me != 0:
+            if me in {r for r, _ in senders}:
+                dist.send(block, dst=0)
+            continue
+        shape = [n * math.prod(sizes[a] for a in entry_axes(e))
+                 for n, e in zip(block.shape, spec)]
+        full = torch.empty(shape, dtype=block.dtype)
+        buf = None
+        for r, coords in senders:
+            if r == 0:
+                piece = block
+            else:
+                buf = torch.empty_like(block) if buf is None else buf
+                dist.recv(buf, src=r)
+                piece = buf
+            at = tuple(slice(i * n, (i + 1) * n) for n, (i, _) in zip(
+                block.shape, (block_index(e, sizes, coords) for e in spec)))
+            full[at].copy_(piece)
+        host[name] = _host_array(full)
+    return host
 
 
 def save(directory: str, step: int, tree, extra: dict | None = None,

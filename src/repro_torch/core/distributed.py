@@ -172,5 +172,61 @@ def replay_ranks(shards, labels, num_classes: int,
     return torch.cat(blocks)[:num_nodes]
 
 
+def lower_gee_distributed(mesh, axes, num_nodes: int, num_edges: int,
+                          num_classes: int, opts: GEEOptions = GEEOptions()
+                          ) -> dict:
+    """The dry-run's view of one rank of :func:`gee_distributed`
+    (``local_backend="segment_sum"``, the reference's
+    ``_gee_distributed_jit`` body), the counterpart of the reference's
+    abstract lowering: traced on fake edge arrays of the padded sizes, so
+    nothing is allocated.  ``mesh``: a ``DeviceMesh`` over a fake process
+    group (``repro_torch.launch.dryrun.fake_world``); ``axes``: the mesh
+    axes the edges split over (one axis, or all of them).
+
+    -> ``{"collectives": census, "records", "num_shards", "n_pad",
+    "e_pad", "bytes_per_rank": {"edges", "labels", "output"}}``: the
+    census priced by ``dryrun.census``; the rank's shard of the edge
+    arrays (int32 src and dst, f32 weight), the labels it holds whole, and
+    its [N_pad / P, K] f32 row block.  The port sums its partials in
+    float64 (ROADMAP F2), so its reduce-scatter and degree all-reduce
+    carry twice the reference's f32 bytes."""
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.dryrun import (CollectiveRecorder, census,
+                                           trace_device)
+
+    axes = tuple(axes)
+    names = tuple(mesh.mesh_dim_names)
+    if len(axes) == 1:
+        group = mesh.get_group(axes[0])
+    elif set(axes) == set(names) and mesh.mesh.numel() == \
+            dist.get_world_size():
+        group = None
+    else:
+        raise ValueError(f"axes {axes}: one mesh axis or all of {names}")
+    p = dist.get_world_size(group)
+    e_pad = ((num_edges + p - 1) // p) * p
+    n_pad = pad_nodes(num_nodes, p)
+    dev = torch.device(trace_device())
+    recorder = CollectiveRecorder()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        edges = EdgeList(
+            src=torch.zeros(e_pad, dtype=torch.int32, device=dev),
+            dst=torch.zeros(e_pad, dtype=torch.int32, device=dev),
+            weight=torch.zeros(e_pad, dtype=torch.float32, device=dev),
+            num_nodes=num_nodes, num_edges=num_edges)
+        labels = torch.zeros(n_pad, dtype=torch.int32, device=dev)
+        with recorder:
+            gee_distributed(edges, labels, num_classes, opts, group=group,
+                            pre_sharded=True, local_backend="segment_sum")
+    return {"collectives": census(recorder.records),
+            "records": recorder.records, "num_shards": p, "n_pad": n_pad,
+            "e_pad": e_pad,
+            "bytes_per_rank": {"edges": (e_pad // p) * 12,
+                               "labels": n_pad * 4,
+                               "output": (n_pad // p) * num_classes * 4}}
+
+
 __all__ = ["gee_distributed", "local_shard", "local_degrees",
-           "local_partial", "replay_ranks"]
+           "local_partial", "replay_ranks", "lower_gee_distributed"]

@@ -178,12 +178,17 @@ def _count(mask: torch.Tensor) -> torch.Tensor:
 
 def moe_forward_ep(params: dict, x: torch.Tensor, moe: MoEConfig, mesh, *,
                    local_capacity_factor: float = 1.5,
-                   serving: bool = False):
+                   serving: bool = False, router_axes=()):
     """The reference's ``moe_forward_ep`` on this rank: ``params`` its
     blocks under ``param_specs(moe, mesh, serving)`` (the router whole),
     ``x`` [B_loc, S, D] its rows of the batch (split over (pod, data),
     replicated over ``model``).  -> (y [B_loc, S, D], aux dict of 0-d f32
-    tensors, the same on every rank)."""
+    tensors, the same on every rank).
+
+    ``router_axes``: the router held as its block of expert columns split
+    over these axes (the serving layout splits it over ``model``): the
+    logits of every token the model peers share are computed on the
+    block and all-gathered, so no weight is gathered."""
     sizes = axis_sizes(mesh)
     dp = _dp_axes(sizes)
     m = sizes["model"]
@@ -211,7 +216,14 @@ def moe_forward_ep(params: dict, x: torch.Tensor, moe: MoEConfig, mesh, *,
         xf = xf_full
 
     # -- 1. routing (the whole router, f32) --
-    logits = xf.to(torch.float32) @ params["router"]
+    if router_axes:
+        logits = xf_full.to(torch.float32) @ params["router"]
+        for axis in reversed(tuple(router_axes)):
+            logits = all_gather_dim(logits, 1, mesh, axis)
+        if sliced:
+            logits = logits.narrow(0, axis_index(mesh, "model") * tl, tl)
+    else:
+        logits = xf.to(torch.float32) @ params["router"]
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = top_k(probs, k)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
@@ -321,20 +333,27 @@ def moe_forward_ep(params: dict, x: torch.Tensor, moe: MoEConfig, mesh, *,
 
 
 def moe_forward_global(params: dict, x: torch.Tensor, moe: MoEConfig,
-                       mesh):
+                       mesh, row_axes=None):
     """The reference's ``moe_forward`` over the global batch, on this
-    rank's rows ``x`` [B_loc, S, D] (split over (pod, data); any ``model``
-    peers compute the same), ``params`` whole: one capacity for all
-    B_global * S tokens and each choice's global position in its expert's
-    stable sort.  -> (y [B_loc, S, D], the global aux)."""
-    axes = _live(axis_sizes(mesh), BATCH_AXES)
+    rank's rows ``x`` [B_loc, S, D] (split over ``row_axes``, the batch
+    axes the global rows divide over, by default every one; any ``model``
+    peers, and the ranks of the batch axes the rows do not split over,
+    hold the same rows and compute the same), ``params`` whole: one
+    capacity for all B_global * S tokens and each choice's global position
+    in its expert's stable sort.  -> (y [B_loc, S, D], the global aux).
+    The aux means count a row as often as ranks hold it, so their values
+    are the reference's and so is their gradient summed over the ranks."""
+    sizes = axis_sizes(mesh)
+    axes = _live(sizes, BATCH_AXES)
     if not axes:
         return moe_forward(params, x, moe)
+    split = axes if row_axes is None else _live(sizes, row_axes)
     b, s, d = x.shape
     t = b * s
     k, e = moe.top_k, moe.num_experts
-    idx, n = batch_index(mesh)
+    idx, n = batch_index(mesh, split)
     t_global = t * n
+    t_held = t * math.prod(sizes[a] for a in axes)
     c = capacity(t_global, moe)
     dev = x.device
     xf = x.reshape(t, d)
@@ -342,7 +361,7 @@ def moe_forward_global(params: dict, x: torch.Tensor, moe: MoEConfig,
     logits = xf.to(torch.float32) @ params["router"]
     r = route(logits, moe, c)
     every = r["counts"][None]
-    for a in reversed(axes):                   # the innermost first
+    for a in reversed(split):                  # the innermost first
         every = all_gather_dim(every, 0, mesh, a)
     # a choice's global rank in its expert: its rank here plus the
     # expert's choices on the ranks before this one
@@ -354,11 +373,11 @@ def moe_forward_global(params: dict, x: torch.Tensor, moe: MoEConfig,
     if moe.num_shared:
         y = y + mlp_forward(params["shared"], x)
 
-    kept = all_reduce(_count(keep), mesh, axes)[0]
+    kept = all_reduce(_count(keep), mesh, split)[0]
     f_e = every.sum(0).to(torch.float32) / max(t_global * k, 1)
-    p_e = Leave.apply(r["probs"].sum(0), mesh, axes) / t_global
+    p_e = Leave.apply(r["probs"].sum(0), mesh, axes) / t_held
     z = Leave.apply(torch.sum(torch.logsumexp(logits, dim=-1) ** 2), mesh,
-                    axes) / t_global
+                    axes) / t_held
     aux = {"load_balance_loss": e * torch.sum(f_e * p_e),
            "router_z_loss": moe.router_z_loss * z,
            "drop_fraction": 1.0 - kept / _f32(t_global * k, dev)}

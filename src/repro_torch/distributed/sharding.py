@@ -36,6 +36,7 @@ the tensor-parallel step's explicit collectives
 
 from __future__ import annotations
 
+import math
 from typing import Mapping, Optional
 
 import numpy as np
@@ -280,33 +281,76 @@ def block_index(entry, sizes: dict, coords: dict) -> tuple[int, int]:
     return idx, n
 
 
+def take_block(x: torch.Tensor, dim: int, entry, mesh,
+              coords=None) -> torch.Tensor:
+    """This rank's block (a view) of ``x`` along ``dim`` split by the spec
+    entry ``entry``.  ``coords``: ``{axis: index}`` of the block (default:
+    this rank's on the ``DeviceMesh``)."""
+    sizes = axis_sizes(mesh)
+    if coords is None:
+        coords = {a: axis_index(mesh, a) for a in sizes}
+    idx, n = block_index(entry, sizes, coords)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"{n} ways")
+    chunk = x.shape[dim] // n
+    return x.narrow(dim, idx * chunk, chunk)
+
+
+def gather_block(x: torch.Tensor, dim: int, entry, mesh) -> torch.Tensor:
+    """Every rank's block along the axes of ``entry`` concatenated along
+    ``dim`` (the inverse of ``take_block``; a collective), the innermost
+    axis first."""
+    dim = dim % x.dim()
+    for axis in reversed(entry_axes(entry)):
+        x = all_gather_dim(x, dim, mesh, axis)
+    return x
+
+
 def shard_leaf(full: torch.Tensor, spec, mesh, coords=None) -> torch.Tensor:
     """This rank's block of ``full`` under ``spec`` (a new contiguous
     tensor: the full leaf may be freed).  ``coords``: ``{axis: index}`` of
     the block to cut (default: this rank's on the ``DeviceMesh``)."""
-    sizes = axis_sizes(mesh)
     if coords is None:
-        coords = {a: axis_index(mesh, a) for a in sizes}
+        coords = {a: axis_index(mesh, a) for a in axis_sizes(mesh)}
     out = full
     for dim, entry in enumerate(spec):
-        if entry is None:
-            continue
-        idx, n = block_index(entry, sizes, coords)
-        if full.shape[dim] % n:
-            raise ValueError(f"dim {dim} of {tuple(full.shape)} does not "
-                             f"split {n} ways")
-        chunk = full.shape[dim] // n
-        out = out.narrow(dim, idx * chunk, chunk)
+        out = take_block(out, dim, entry, mesh, coords)
     return out.clone(memory_format=torch.contiguous_format)
 
 
-def batch_index(mesh) -> tuple[int, int]:
-    """-> (this rank's index among the ranks of the batch axes, their
-    count): (pod, data) row-major, the pod outermost; the rows of a global
-    batch a rank holds (``tensor_parallel.ShardedLM.local_batch``)."""
+def block_shape(shape, spec, sizes: dict) -> tuple:
+    """The shape of one rank's block of a leaf of ``shape`` under
+    ``spec``."""
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        n = math.prod(sizes[a] for a in entry_axes(entry))
+        if out[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not split "
+                             f"{n} ways")
+        out[dim] //= n
+    return tuple(out)
+
+
+def block_bytes(tree, specs: dict, sizes: dict) -> int:
+    """One rank's bytes of a tree of (meta) tensors under ``specs``."""
+    total = 0
+    for path, x in flatten_with_paths(tree).items():
+        total += math.prod(block_shape(tuple(x.shape), specs[path], sizes)) \
+            * x.element_size()
+    return total
+
+
+def batch_index(mesh, axes=BATCH_AXES) -> tuple[int, int]:
+    """-> (this rank's index among the ranks of the batch axes ``axes``,
+    their count): row-major, the first axis (the pod) outermost; which
+    block of a global batch's rows a rank holds where the rows split over
+    ``axes`` (``tensor_parallel.ShardedLM.local_batch``)."""
     sizes = axis_sizes(mesh)
     idx, n = 0, 1
-    for a in BATCH_AXES:
+    for a in axes:
         if sizes.get(a, 1) > 1:
             idx = idx * sizes[a] + axis_index(mesh, a)
             n *= sizes[a]
@@ -319,13 +363,13 @@ def gather_leaf(block: torch.Tensor, spec, mesh) -> torch.Tensor:
     the mesh calls it with its own block)."""
     out = block
     for dim, entry in enumerate(spec):
-        for axis in reversed(entry_axes(entry)):   # the innermost first
-            out = all_gather_dim(out, dim, mesh, axis)
+        out = gather_block(out, dim, entry, mesh)
     return out
 
 
 __all__ = ["LOGICAL_RULES", "SERVING_RULES", "BATCH_AXES", "axis_sizes",
            "spec_for_shape", "spec_axes", "make_constrainer",
            "param_shardings", "cache_shardings", "batch_shardings",
-           "entry_axes", "block_index", "shard_leaf", "batch_index",
-           "gather_leaf"]
+           "entry_axes", "block_index", "block_shape", "block_bytes",
+           "take_block", "gather_block",
+           "shard_leaf", "batch_index", "gather_leaf"]

@@ -59,9 +59,10 @@ from repro_torch.distributed import moe_ep
 from repro_torch.distributed.collectives import (Enter, Gather, Leave,
                                                  all_reduce, axis_index)
 from repro_torch.distributed.sharding import (BATCH_AXES, axis_sizes,
-                                              batch_index, entry_axes,
-                                              param_shardings, shard_leaf,
-                                              spec_axes)
+                                              cache_shardings, entry_axes,
+                                              gather_block, param_shardings,
+                                              shard_leaf, spec_axes,
+                                              spec_for_shape, take_block)
 from repro_torch.models import frontends, lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.tree import (flatten_with_paths, tree_leaves, tree_paths,
@@ -201,6 +202,8 @@ class ShardedLM:
         m = self.sizes.get("model", 1)
         self.model = m
         self.rank_in_model = axis_index(mesh, "model")
+        # the batch axes the rows of the last ``local_batch`` split over
+        self.row_axes = self.batch_axes()
         abstract = lm.abstract_params(cfg)
         self.top_specs = param_shardings(
             {k: v for k, v in abstract.items() if k != "layers"}, mesh)
@@ -330,7 +333,8 @@ class ShardedLM:
         return moe_ep.moe_forward_ep(flat, h, self.cfg.moe, self.mesh)
 
     def _moe_global(self, p: dict, h: torch.Tensor):
-        return moe_ep.moe_forward_global(p, h, self.cfg.moe, self.mesh)
+        return moe_ep.moe_forward_global(p, h, self.cfg.moe, self.mesh,
+                                         self.row_axes)
 
     # -- embedding, head, loss ------------------------------------------------
     def _vocab_lookup(self, table: torch.Tensor, tokens: torch.Tensor):
@@ -374,7 +378,10 @@ class ShardedLM:
     def cross_entropy(self, logits: torch.Tensor, labels: torch.Tensor,
                       mask: Optional[torch.Tensor] = None):
         """-> (this rank's share of the global mean CE: its positions' sum
-        over the global count of valid positions, that count)."""
+        over the count of valid positions on every batch rank, the global
+        batch's count of valid positions).  Where ranks hold the same rows
+        (``local_batch``) the first count holds them as often, so the
+        shares still sum to the mean, and their gradients to its."""
         if mask is None:
             mask = torch.ones_like(labels, dtype=torch.float32)
         mask = mask.to(torch.float32)
@@ -386,7 +393,10 @@ class ShardedLM:
                 self.cfg.vocab_size, self.mesh)
         else:
             ll = log_lik(logits, labels, self.cfg.vocab_size)
-        return -(ll * mask).sum() / torch.clamp(denom, min=1.0), denom
+        copies = math.prod(self.sizes[a] for a in self.batch_axes()
+                           if a not in self.row_axes)
+        return -(ll * mask).sum() / torch.clamp(denom, min=1.0), \
+            denom / copies
 
     # -- batches and gradients ------------------------------------------------
     def batch_axes(self) -> tuple:
@@ -394,19 +404,85 @@ class ShardedLM:
 
     def local_batch(self, batch: dict) -> dict:
         """This rank's rows of a global batch: the batch split over the
-        ranks of (pod, data), the first axis outermost."""
-        idx, n = batch_index(self.mesh)
-        out = {}
-        for k, v in batch.items():
-            if v.shape[0] % n:
-                raise ValueError(f"a batch of {v.shape[0]} rows does not "
-                                 f"split over {n} data ranks")
-            per = v.shape[0] // n
-            out[k] = v[idx * per:(idx + 1) * per]
-        return out
+        ranks of (pod, data), the first axis outermost.  Where the rows do
+        not divide over both, they split over the pods alone (where those
+        divide them) or not at all, and the ranks of the other axes run
+        the same rows (a microbatch of 16 rows over 2 x 16 ranks).  The
+        axes split over are kept (``row_axes``) for the forward that
+        follows: the loss and the global MoE dispatch count each row once
+        (``cross_entropy``, ``moe_ep.moe_forward_global``)."""
+        n_rows = next(iter(batch.values())).shape[0]
+        rows = spec_for_shape((n_rows,), ("batch",), self.mesh)[0]
+        self.row_axes = entry_axes(rows)
+        return {k: take_block(v, 0, rows, self.mesh)
+                for k, v in batch.items()}
 
     def sum_over_batch(self, x: torch.Tensor) -> torch.Tensor:
         return all_reduce(x.detach().clone(), self.mesh, self.batch_axes())
+
+    # -- prefill --------------------------------------------------------------
+    def prefill(self, params: dict, batch: dict, *, cache_len: int,
+                attn_impl: str = "auto", chunk: int = 512):
+        """The prompt's forward under the training layout (``params``:
+        this rank's blocks in the port's layout, ``lm.init_params``'s,
+        under ``param_shardings(..., rules=None)``; ``batch``: the global
+        batch) -> (the last position's logits [B, 1, V_pad] f32, whole on
+        every rank; this rank's blocks of the caches under
+        ``cache_shardings`` of ``lm.init_caches(cfg, B, cache_len)``, whose
+        windowed layers keep ``min(cache_len, window)`` slots).
+        The batch is split over (pod, data) where it divides them (where
+        it does not, those ranks run every row)."""
+        cfg = self.cfg
+        b = next(iter(batch.values())).shape[0]
+        rows = spec_for_shape((b,), ("batch",), self.mesh)[0]
+        local = self.local_batch(batch)
+        if cfg.sliding_window is not None:
+            # a windowed layer keeps the window (a ring once it is full),
+            # the slots lm.init_caches gives it
+            cache_len = min(cache_len, cfg.sliding_window)
+        with torch.no_grad():
+            logits, caches, _ = lm.forward(
+                params, local, cfg, mode="prefill", attn_impl=attn_impl,
+                chunk=chunk, cache_len=cache_len, shard=self)
+        last = logits[:, -1:]
+        if self.vocab_tp:
+            last = gather_block(last, 2, "model", self.mesh)
+        last = gather_block(last, 0, rows, self.mesh)
+        specs = cache_shardings(lm.init_caches(cfg, b, cache_len,
+                                               device="meta"), self.mesh)
+        if isinstance(caches, dict):          # stacked: a layer at a time
+            caches = {n: torch.stack([
+                self._cache_block(n, layer, specs[n][1:],
+                                  cfg.layer_pattern[0])
+                for layer in leaf.unbind(0)]) for n, leaf in caches.items()}
+        else:
+            caches = [{n: self._cache_block(n, leaf, specs[f"{i}/{n}"], t)
+                       for n, leaf in c.items()}
+                      for i, (c, t) in enumerate(zip(caches,
+                                                     cfg.layer_pattern))]
+        return last, caches
+
+    def _cache_block(self, name: str, leaf: torch.Tensor, spec,
+                     layer_type: str) -> torch.Tensor:
+        """A layer's prefill cache leaf [B_rows, ...] of this rank's rows
+        -> its block under ``spec``.  K/V of a
+        tensor-parallel attention layer hold the KV head of each of this
+        rank's query heads: where the KV heads did not split they are
+        gathered over ``model`` and one head of each group kept; where
+        they split, the K/V are the KV-head block the spec names."""
+        tp = layer_type == "attn" and self.attn_tp
+        kv_dim = leaf.dim() - 2
+        if name in ("k", "v") and tp and not self.kv_whole:
+            g = self.cfg.num_heads // self.cfg.num_kv_heads
+            leaf = gather_block(leaf, kv_dim, "model",
+                                self.mesh)[..., ::g, :]
+        out = leaf
+        for dim, entry in enumerate(spec):
+            if dim == 0 or (name in ("k", "v") and tp and self.kv_whole
+                            and dim == kv_dim):
+                continue
+            out = take_block(out, dim, entry, self.mesh)
+        return out.contiguous()
 
     def finish_grads(self, grads: list, params) -> list:
         """Sum each block's gradient over the batch axes its leaf is not

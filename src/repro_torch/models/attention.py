@@ -336,6 +336,32 @@ def _keep_rows(buf: torch.Tensor, slot: torch.Tensor, old: torch.Tensor,
     buf.index_copy_(1, slot, torch.where(keep, cur, old))
 
 
+def decode_attend(qg, k, v, pos_buf, position, cfg: ModelConfig,
+                  combine=None) -> torch.Tensor:
+    """The decode step's attention over a cache, the new column written:
+    ``qg`` [B, KV, G, hd] f32, ``k`` / ``v`` [B, S, KV, hd], ``pos_buf``
+    [B, S] -> [B, KV, G, hd] f32.  Scores and values in f32 over every
+    slot, masked to the valid positions up to ``position`` (and inside
+    the window).  ``combine(op, x)`` ("max" or "sum"), where the cache
+    holds one block of the sequence, reduces over the other blocks (a
+    split softmax: the max, the sum of exponentials and the weighted
+    values); None on one device."""
+    logits = torch.matmul(qg, _heads_major_f32(k).transpose(-1, -2))
+    logits.mul_(qg.shape[-1] ** -0.5)                     # [B,KV,G,S]
+    dk = pos_buf[:, None, None, :]
+    mask = (dk >= 0) & (dk <= position)
+    if cfg.sliding_window is not None:
+        mask = mask & (position - dk < cfg.sliding_window)
+    logits = torch.where(mask, logits, NEG_INF)
+    if combine is None:
+        p = torch.softmax(logits, dim=-1)
+        return torch.matmul(p, _heads_major_f32(v))
+    peak = combine("max", logits.amax(dim=-1, keepdim=True))
+    e = torch.where(mask, torch.exp(logits - peak), 0.0)
+    total = combine("sum", e.sum(dim=-1, keepdim=True))
+    return combine("sum", torch.matmul(e, _heads_major_f32(v))) / total
+
+
 def attention_decode(params, x_t, cache, position, cfg: ModelConfig, *,
                      mrope_positions=None, rows=None, rope=None):
     """One decode step.  x_t [B, 1, D]; ``cache`` from ``attention_forward``
@@ -369,16 +395,8 @@ def attention_decode(params, x_t, cache, position, cfg: ModelConfig, *,
     olds = [_write_column(buf, slot, new) for buf, new in
             ((k, k_new), (v, v_new), (pos_buf, pos))]
 
-    qg = q.reshape(b, kvh, g, hd).to(torch.float32)
-    logits = torch.matmul(qg, _heads_major_f32(k).transpose(-1, -2))
-    logits.mul_(hd ** -0.5)                               # [B,KV,G,S]
-    dk = pos_buf[:, None, None, :]
-    mask = (dk >= 0) & (dk <= position)
-    if cfg.sliding_window is not None:
-        mask = mask & (position - dk < cfg.sliding_window)
-    logits = torch.where(mask, logits, NEG_INF)
-    p = torch.softmax(logits, dim=-1)
-    out = torch.matmul(p, _heads_major_f32(v))           # [B,KV,G,hd]
+    out = decode_attend(q.reshape(b, kvh, g, hd).to(torch.float32), k, v,
+                        pos_buf, position, cfg)
     out = out.reshape(b, 1, h * hd).to(x_t.dtype)
     y = out @ params["wo"]
     if mask_rows is not None:
@@ -404,4 +422,4 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 __all__ = ["NEG_INF", "CachePositionError", "is_ring",
            "check_decode_position", "torch_dtype", "init_attention", "attention_forward",
-           "row_mask", "attention_decode", "init_cache"]
+           "row_mask", "decode_attend", "attention_decode", "init_cache"]

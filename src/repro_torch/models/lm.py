@@ -93,32 +93,49 @@ def _init_layer(gen, cfg: ModelConfig, layer_type: str, device) -> dict:
     return p
 
 
-def _build(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
+def _build(cfg: ModelConfig, gen: torch.Generator, device,
+           place=None) -> dict:
+    """The parameter tree, each part drawn in turn from ``gen``; with
+    ``place(path, tensor)`` each leaf is handed to it as soon as its part
+    is drawn and what it returns is kept (so a rank can keep its block of
+    a model that would not fit whole)."""
     dt = torch_dtype(cfg.param_dtype)
+    keep = (lambda path, x: x) if place is None else place
+
+    def kept(prefix: str, part):
+        if isinstance(part, dict):
+            return {k: kept(f"{prefix}/{k}", v) for k, v in part.items()}
+        return keep(prefix, part)
+
     params: dict = {}
     if cfg.vocab_size:
-        params["embed"] = embed_init(gen, (cfg.padded_vocab, cfg.d_model),
-                                     dt, device)
+        params["embed"] = kept("embed", embed_init(
+            gen, (cfg.padded_vocab, cfg.d_model), dt, device))
     if cfg.frontend != "none":
-        params["frontend"] = init_frontend(gen, cfg, device)
-    params["layers"] = [_init_layer(gen, cfg, t, device)
-                        for t in cfg.layer_pattern]
-    params["final_norm"] = torch.zeros((cfg.d_model,), dtype=dt,
-                                       device=device)
+        params["frontend"] = kept("frontend", init_frontend(gen, cfg,
+                                                            device))
+    params["layers"] = [kept(f"layers/{i}", _init_layer(gen, cfg, t, device))
+                        for i, t in enumerate(cfg.layer_pattern)]
+    params["final_norm"] = kept("final_norm", torch.zeros(
+        (cfg.d_model,), dtype=dt, device=device))
     if cfg.vocab_size and not cfg.tie_embeddings:
-        params["head"] = truncated_normal_init(
-            gen, (cfg.d_model, cfg.padded_vocab), 1.0, dt, device)
+        params["head"] = kept("head", truncated_normal_init(
+            gen, (cfg.d_model, cfg.padded_vocab), 1.0, dt, device))
     return params
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
-                generator: Optional[torch.Generator] = None) -> dict:
+                generator: Optional[torch.Generator] = None,
+                place=None) -> dict:
     """Random weights on ``device`` (``None``: the card), drawn from
     ``generator`` (default: a generator on the device seeded with
     ``seed``).  The embedding is [padded_vocab, D]; an untied head
     [D, padded_vocab]; a patch or frame frontend's ``frontend/proj``
     [frontend_dim, D]; the router, the SSM's ``a_log`` / ``dt_bias`` /
-    ``d_skip`` and the RG-LRU's gates f32, as in the reference."""
+    ``d_skip`` and the RG-LRU's gates f32, as in the reference.
+    ``place(path, leaf)``: what to keep of each leaf as it is drawn (e.g.
+    ``distributed.serving.ServingLM.place``: this rank's block); the same
+    draws, so the blocks are those of the whole tree."""
     check_supported(cfg)
     device = resolve_device(device)
     if device.type == "meta":
@@ -127,7 +144,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
     if gen is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(int(seed))
-    return _build(cfg, gen, device)
+    return _build(cfg, gen, device, place)
 
 
 def abstract_params(cfg: ModelConfig) -> dict:
@@ -415,6 +432,24 @@ def check_position(cfg: ModelConfig, caches, position: int) -> None:
         attn_mod.check_decode_position(cfg, s_max, position)
 
 
+def decode_rope(cfg: ModelConfig, position: torch.Tensor, b: int) -> list:
+    """The rope tables of a decode step of ``b`` rows at ``position`` (a
+    one-element int64 tensor).  Under M-RoPE the text ``t`` coordinate
+    continues from the patch grid's end, as ``frontends.patch_grid_mrope``
+    numbered the prefill: ``text_mrope_t0(n_patch) + position - n_patch``
+    (the reference's)."""
+    pos_arr = position.view(1, 1).expand(b, 1)
+    mrope = None
+    if cfg.rope == "mrope":
+        t_coord = pos_arr
+        if cfg.frontend == "patch" and cfg.frontend_tokens:
+            t_coord = text_mrope_t0(cfg.frontend_tokens) \
+                + (pos_arr - cfg.frontend_tokens)
+        mrope = t_coord[..., None].expand(b, 1, 3)
+    return rope_tables(pos_arr, cfg.resolved_head_dim, cfg.rope_theta,
+                       cfg.rope, mrope)
+
+
 def decode_step(params: dict, tokens_t: Optional[torch.Tensor], caches,
                 position, cfg: ModelConfig, *, rows=None,
                 embeds_t: Optional[torch.Tensor] = None):
@@ -428,10 +463,8 @@ def decode_step(params: dict, tokens_t: Optional[torch.Tensor], caches,
     as the reference computes it (its new K/V column in place, its new
     state) but only those rows' caches keep what the step wrote.  With
     tensor ``position`` and ``rows`` nothing reads a device value on the
-    host, so the step can be captured in a CUDA graph.  Under M-RoPE the
-    text ``t`` coordinate continues from the patch grid's end, as
-    ``frontends.patch_grid_mrope`` numbered the prefill:
-    ``text_mrope_t0(n_patch) + position - n_patch`` (the reference's).
+    host, so the step can be captured in a CUDA graph.  The rope tables:
+    ``decode_rope``.
     -> (logits [B, 1, V_pad] f32, caches)
     """
     check_supported(cfg)
@@ -441,16 +474,7 @@ def decode_step(params: dict, tokens_t: Optional[torch.Tensor], caches,
         check_position(cfg, caches, int(position))
         position = torch.full((1,), int(position), dtype=torch.int64,
                               device=dev)
-    pos_arr = position.view(1, 1).expand(b, 1)
-    mrope = None
-    if cfg.rope == "mrope":
-        t_coord = pos_arr
-        if cfg.frontend == "patch" and cfg.frontend_tokens:
-            t_coord = text_mrope_t0(cfg.frontend_tokens) \
-                + (pos_arr - cfg.frontend_tokens)
-        mrope = t_coord[..., None].expand(b, 1, 3)
-    rope = rope_tables(pos_arr, cfg.resolved_head_dim, cfg.rope_theta,
-                       cfg.rope, mrope)
+    rope = decode_rope(cfg, position, b)
     rows = attn_mod.row_mask(rows, b, dev)
     dt = torch_dtype(cfg.compute_dtype)
     x = embeds_t.to(dt) if embeds_t is not None \
@@ -468,4 +492,4 @@ __all__ = ["PORTED", "AUX_KEYS", "check_supported", "stacked", "init_params",
            "abstract_params", "tree_size_from_param_count",
            "remat_groups", "forward", "init_caches", "layer_cache",
            "cache_leaves", "attention_cache_len", "check_position",
-           "decode_step"]
+           "decode_rope", "decode_step"]

@@ -125,9 +125,12 @@ def moe_forward(params: dict, x: torch.Tensor, moe: MoEConfig):
 
 
 def routed_experts(params: dict, xf: torch.Tensor, r: dict, c: int,
-                   moe: MoEConfig) -> torch.Tensor:
+                   moe: MoEConfig, glu=None) -> torch.Tensor:
     """The routed experts' output [T, D] in f32 for the tokens ``xf``
-    [T, D] dispatched by ``r`` (``route``) into ``c`` rows an expert."""
+    [T, D] dispatched by ``r`` (``route``) into ``c`` rows an expert.
+    ``glu(expert_in [E, C, D]) -> [E, C, D]``: the experts' GLU, when the
+    caller computes it on blocks of the expert weights (default: the
+    batched GLU on ``params``' whole ``we_*``)."""
     t, d = xf.shape
     k, e = moe.top_k, moe.num_experts
 
@@ -137,9 +140,12 @@ def routed_experts(params: dict, xf: torch.Tensor, r: dict, c: int,
     expert_in = buf[:e * c].view(e, c, d)
 
     # --- batched per-expert GLU ---
-    gate = torch.bmm(expert_in, params["we_gate"])
-    up = torch.bmm(expert_in, params["we_up"])
-    out = torch.bmm(F.silu(gate) * up, params["we_down"])       # [E, C, D]
+    if glu is not None:
+        out = glu(expert_in)
+    else:
+        gate = torch.bmm(expert_in, params["we_gate"])
+        up = torch.bmm(expert_in, params["we_up"])
+        out = torch.bmm(F.silu(gate) * up, params["we_down"])   # [E, C, D]
 
     # --- combine: back to (token, choice) order, weighted, summed ---
     out_flat = torch.cat([out.reshape(e * c, d), out.new_zeros((1, d))])

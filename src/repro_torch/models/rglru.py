@@ -104,6 +104,16 @@ def rglru_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                "conv": conv_tail.contiguous()}
 
 
+def rglru_step(params: dict, u: torch.Tensor, h: torch.Tensor,
+               c_exp: float) -> torch.Tensor:
+    """The recurrence's step on a block of channels: the conv's output
+    ``u`` [B, W], the state ``h`` [B, W] f32 (not changed) and the
+    channels' gates (``w_a``, ``b_a``, ``w_i``, ``b_i``, ``lam`` [W] in
+    ``params``) -> the new state."""
+    log_a, b = _lru_coeffs(params, u, c_exp)
+    return torch.exp(log_a) * h + b
+
+
 def rglru_decode(params: dict, x_t: torch.Tensor, cache: dict,
                  cfg: ModelConfig, *, rows: Optional[torch.Tensor] = None):
     """x_t [B, 1, D]; cache {h [B, W] f32, conv [B, K-1, W]}, written in
@@ -112,8 +122,7 @@ def rglru_decode(params: dict, x_t: torch.Tensor, cache: dict,
     gate = F.gelu(x_t[:, 0, :] @ params["w_gate_branch"], approximate="tanh")
     u_conv, conv_state = causal_conv1d_update(u, cache["conv"],
                                               params["conv_w"])
-    log_a, b = _lru_coeffs(params, u_conv, cfg.rglru.c_exponent)
-    h = torch.exp(log_a) * cache["h"] + b
+    h = rglru_step(params, u_conv, cache["h"], cfg.rglru.c_exponent)
     y = ((h.to(x_t.dtype) * gate) @ params["w_out"])[:, None, :]
     commit(cache["h"], h, rows)
     commit(cache["conv"], conv_state, rows)
@@ -130,5 +139,5 @@ def init_rglru_cache(cfg: ModelConfig, batch: int, dtype,
     }
 
 
-__all__ = ["init_rglru", "linear_scan", "rglru_forward", "rglru_decode",
-           "init_rglru_cache"]
+__all__ = ["init_rglru", "linear_scan", "rglru_forward", "rglru_step",
+           "rglru_decode", "init_rglru_cache"]

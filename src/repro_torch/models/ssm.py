@@ -161,6 +161,23 @@ def commit(buf: torch.Tensor, new: torch.Tensor,
                     out=buf)
 
 
+def ssm_step(xh: torch.Tensor, dt_raw: torch.Tensor, bm: torch.Tensor,
+             cm: torch.Tensor, h: torch.Tensor, params: dict):
+    """The recurrence's step on a block of heads: ``xh`` [B, H, P] f32,
+    ``dt_raw`` [B, H], ``bm`` / ``cm`` [B, N], the state ``h`` [B, H, P, N]
+    f32 (not changed) and the heads' ``dt_bias``, ``a_log`` and ``d_skip``
+    [H] in ``params`` -> (y [B, H, P] f32 with the skip, the new
+    state)."""
+    f32 = torch.float32
+    dt = F.softplus(dt_raw.to(f32) + params["dt_bias"])
+    a = -torch.exp(params["a_log"])
+    decay = torch.exp(dt * a[None, :])                  # [B, H]
+    dbx = (xh * dt[..., None])[..., None] * bm.to(f32)[:, None, None, :]
+    st = dbx.addcmul_(h, decay[..., None, None])
+    y = torch.einsum("bn,bhpn->bhp", cm.to(f32), st)
+    return y + xh * params["d_skip"][None, :, None], st
+
+
 def ssm_decode(params: dict, u_t: torch.Tensor, cache: dict,
                cfg: ModelConfig, *, rows: Optional[torch.Tensor] = None):
     """One token: u_t [B, 1, D]; cache {h [B,H,P,N] f32, conv [B,K-1,C]},
@@ -178,15 +195,8 @@ def ssm_decode(params: dict, u_t: torch.Tensor, cache: dict,
     conv_out = F.silu(conv_out)
     x, bm, cm = torch.split(conv_out, [d_inner, n_dim, n_dim], dim=-1)
 
-    dt = F.softplus(dt_raw.to(f32) + params["dt_bias"])
-    a = -torch.exp(params["a_log"])
-    decay = torch.exp(dt * a[None, :])                  # [B, H]
-
     xh = x.reshape(b, n_heads, p_dim).to(f32)
-    dbx = (xh * dt[..., None])[..., None] * bm.to(f32)[:, None, None, :]
-    h = dbx.addcmul_(cache["h"], decay[..., None, None])
-    y = torch.einsum("bn,bhpn->bhp", cm.to(f32), h)
-    y = y + xh * params["d_skip"][None, :, None]
+    y, h = ssm_step(xh, dt_raw, bm, cm, cache["h"], params)
     y = y.reshape(b, d_inner) * F.silu(z.to(f32))
     y = rms_norm(y.to(u_t.dtype), params["norm"], cfg.norm_eps)
     out = (y @ params["w_out"])[:, None, :]
@@ -206,5 +216,5 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device=None) -> dict:
     }
 
 
-__all__ = ["init_ssm", "chunk_len", "ssm_forward", "commit", "ssm_decode",
-           "init_ssm_cache"]
+__all__ = ["init_ssm", "chunk_len", "ssm_forward", "commit", "ssm_step",
+           "ssm_decode", "init_ssm_cache"]

@@ -12,7 +12,10 @@ dispatch (``repro_torch/distributed/moe_ep.py``: the experts split over
 ``moe_forward``).  The reduced configs' capacity factor (8.0) drops
 nothing, so the drops there equal one device's; on (2, 1) deepseek also
 runs at capacity factor 1.0, where choices drop, against the reference's
-one-device step.
+one-device step.  A batch of one row, which the two data ranks do not
+split, runs on both: on (2, 1) at capacity factor 1.0 (the global
+dispatch counts the row once, so it drops what one device drops) and on
+(2, 2) (the expert-parallel dispatch).
 """
 
 import json
@@ -32,6 +35,9 @@ NAMES = ("deepseek-moe-16b", "kimi-k2-1t-a32b")
 # (2, 1), where the reference sorts all global tokens under one capacity
 BINDING = "deepseek-moe-16b@cf1.0"
 BINDING_MESH = "2x1"
+# one row held by both data ranks: (name, mesh)
+COPIED = (("deepseek-moe-16b@cf1.0@b1", "2x1"), ("deepseek-moe-16b@b1",
+                                                  "2x2"))
 
 
 @pytest.fixture(scope="module")
@@ -39,10 +45,11 @@ def moe_ranks(tmp_path_factory):
     """mesh name -> rank 0's gathered results, the meshes of a world size
     spawned together; the binding case on (2, 1) only."""
     inputs = write_inputs(tmp_path_factory.mktemp("moe_inputs"),
-                          NAMES + (BINDING,))
+                          NAMES + (BINDING,) + tuple(n for n, _ in COPIED))
     get = spawned(tmp_path_factory, inputs,
                   lambda m: NAMES + ((BINDING,) if m == BINDING_MESH
-                                     else ()))
+                                     else ())
+                  + tuple(n for n, mesh in COPIED if mesh == m))
     return lambda mesh_name: get(mesh_name)[0]
 
 
@@ -70,24 +77,45 @@ def test_capacity_binding_moe_matches_the_global_dispatch(moe_ranks):
     the reference's compiler turns the division by that constant into a
     product with its f32 reciprocal, so the two fractions may differ in
     their last bits while the counts are equal."""
-    res = moe_ranks(BINDING_MESH)
-    want_m, want = reference_grads(BINDING)
-    jcfg = reference(BINDING)[0]
-    choices = jcfg.num_layers * B * S * jcfg.moe.top_k
-    dropped = {k: m["drop_fraction"] * choices for k, m in
-               (("want", want_m),
-                ("got", _prefixed(res, f"metric/{BINDING}/grad")))}
+    dropped = check_drops(moe_ranks(BINDING_MESH), BINDING)
     assert round(dropped["want"]) > 0, dropped
+
+
+@pytest.mark.parametrize("name,mesh_name", COPIED)
+def test_copied_rows_moe_matches_the_reference(name, mesh_name, moe_ranks):
+    """A batch of one row on two data ranks, each holding it: the loss,
+    the token count, the drops, the load balance and the gradients summed
+    over the ranks are the reference's one-device step's.  At capacity
+    factor 1.0 on (2, 1) choices drop, so the global dispatch must rank
+    the copies' choices as one row's."""
+    res = moe_ranks(mesh_name)
+    check_gradients(res, name)
+    dropped = check_drops(res, name)
+    if "@cf1.0" in name:
+        assert round(dropped["want"]) > 0, dropped
+
+
+def check_drops(res, name):
+    """The dropped choices, the loss, the load balance and the gradients
+    of ``name`` against the reference's one-device step -> the two drop
+    counts."""
+    want_m, want = reference_grads(name)
+    jcfg, _, batch = reference(name)
+    choices = (jcfg.num_layers * batch["tokens"].shape[0] * S
+               * jcfg.moe.top_k)
+    got_m = _prefixed(res, f"metric/{name}/grad")
+    dropped = {k: m["drop_fraction"] * choices for k, m in
+               (("want", want_m), ("got", got_m))}
     assert round(dropped["got"]) == round(dropped["want"]), dropped
     assert all(abs(v - round(v)) < 1e-4 for v in dropped.values()), dropped
-    got_m = _prefixed(res, f"metric/{BINDING}/grad")
     assert float(got_m["loss"]) == pytest.approx(want_m["loss"], rel=1e-5)
     assert float(got_m["load_balance"]) == pytest.approx(
         want_m["load_balance"], rel=1e-5)
-    got = _prefixed(res, f"grad/{BINDING}")
+    got = _prefixed(res, f"grad/{name}")
     assert set(got) == set(want)
     for k, v in want.items():
         within(got[k], v)
+    return dropped
 
 
 # ---------------------------------------------------------------------------

@@ -78,16 +78,25 @@ def _batch(cfg):
     return out
 
 
+def _variant(name):
+    """``"<arch>[@cf<x>][@b<n>]"`` -> (arch, capacity factor or None, rows
+    or None): an MoE config at capacity factor x, the batch cut to its
+    first n rows (cases of the gradient alone)."""
+    arch, *opts = name.split("@")
+    cf = next((float(o[2:]) for o in opts if o.startswith("cf")), None)
+    rows = next((int(o[1:]) for o in opts if o.startswith("b")), None)
+    return arch, cf, rows
+
+
 def _config(get, name):
-    """The reduced config of ``name``; ``"<arch>@cf<x>"`` is an MoE
-    config's at capacity factor x (a case of the gradient alone)."""
+    """The reduced config of ``name`` (``_variant``)."""
     import dataclasses
 
-    arch, _, cf = name.partition("@cf")
+    arch, cf, _ = _variant(name)
     cfg = get(arch).reduced()
-    if cf:
+    if cf is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, capacity_factor=float(cf)))
+            cfg.moe, capacity_factor=cf))
     return cfg
 
 
@@ -96,7 +105,8 @@ def reference(name):
     """-> (reference config, weights, numpy batch)."""
     jcfg = _config(j_get_config, name)
     jp = jlm.init_params(jax.random.PRNGKey(0), jcfg)
-    return jcfg, jp, _batch(jcfg)
+    rows = _variant(name)[2]
+    return jcfg, jp, {k: v[:rows] for k, v in _batch(jcfg).items()}
 
 
 @functools.lru_cache(maxsize=None)
@@ -221,11 +231,11 @@ def _mesh_work(mesh, names, in_dir, out_dir, ckpt_in, ckpt_out) -> dict:
                 if ckpt_out and (name, opt_name, micro) == (
                         "qwen3-0.6b", "adamw", 1):
                     tree = {"params": p1, "opt": s1}
+                    tree_specs = param_shardings(
+                        {"params": params, "opt": opt.init(params)}, mesh)
                     ckpt.save(ckpt_out, 1, tree, {"step": 1},
-                              shardings=param_shardings(
-                                  {"params": params,
-                                   "opt": opt.init(params)}, mesh),
-                              mesh=mesh)
+                              shardings=tree_specs, mesh=mesh)
+                    _host_gather(tree, tree_specs, mesh, out_dir, out)
     if ckpt_in:
         from repro_torch.models import lm
 
@@ -239,6 +249,23 @@ def _mesh_work(mesh, names, in_dir, out_dir, ckpt_in, ckpt_out) -> dict:
         ckpt.save(os.path.join(out_dir, "resaved"), 1, tree, extra,
                   shardings=specs, mesh=mesh)
     return out
+
+
+def _host_gather(tree, specs, mesh, out_dir, out):
+    """``ckpt.gather_to_host`` on every rank: each rank's count of host
+    leaves (rank 0 records them all), and rank 0's dict saved whole into
+    ``out_dir/host_gathered``."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import ckpt
+
+    host = ckpt.gather_to_host(tree, specs, mesh)
+    counts = [None] * dist.get_world_size()
+    dist.all_gather_object(counts, len(host))
+    out["host_leaves"] = np.asarray(counts)
+    if dist.get_rank() == 0:
+        ckpt.save(os.path.join(out_dir, "host_gathered"), 1, host,
+                  {"step": 1})
 
 
 def _spawn(world, plan, tmp_path, in_dir, ckpt_dir=None):
@@ -429,6 +456,24 @@ def test_checkpoint_crosses_meshes_with_an_equal_digest(ranks):
     want = _prefixed(res22, "param/qwen3-0.6b/adamw/1")
     for k, v in want.items():
         np.testing.assert_array_equal(arrays["params/" + k], v)
+
+
+def test_gather_to_host_keeps_the_state_on_rank_0_only(ranks):
+    """``ckpt.gather_to_host`` at (2, 2): rank 0 holds every leaf of the
+    step's parameters and AdamW state, ranks 1-3 return ``{}``, and rank
+    0's dict saved whole has the sharded save's digest."""
+    res22, out22 = ranks("2x2")
+    src = str(ranks.ckpt_dir)
+
+    def manifest(d):
+        with open(os.path.join(d, "step_0000000001", "manifest.json")) as f:
+            return json.load(f)
+
+    counts = [int(c) for c in res22["host_leaves"]]
+    assert counts[0] == len(manifest(src)["index"]) > 0
+    assert counts[1:] == [0, 0, 0]
+    assert manifest(out22 / "host_gathered")["digest"] \
+        == manifest(src)["digest"]
 
 
 @pytest.mark.parametrize("mesh_name", MESHES)

@@ -37,7 +37,16 @@ axis).  An MoE config's layers take the mesh's dispatch
    saved again, and restored whole in rank 0's process and saved: the
    three manifests' digests equal;
 4. one int8 compressed all-reduce over ``data`` against the exact mean:
-   every element within half a quantum of the shared scale.
+   every element within half a quantum of the shared scale;
+5. with ``--serve-check``: prefill (``ShardedLM.prefill``, the training
+   layout) and decode (``distributed/serving.py::ServingLM``, the serving
+   layout) of ``SERVE_BATCH`` prompts of ``SERVE_PROMPT`` tokens and
+   ``SERVE_DECODE`` new ones on this mesh, against the one-device
+   ``lm.forward(mode="prefill")`` and ``lm.decode_step`` of the same
+   seeded weights on this rank's device: f32 cut to ``--check-layers``
+   layers within 1e-4 * max|want| + 1e-5, bf16 at full depth (or
+   ``--layers``) within 2^-8 * sqrt(6 L) * max|want| + 1e-5 (``PERF.md``
+   section 2's bf16 walk).
 
 Rank 0 prints one line and writes the JSON to ``--out`` (default
 ``chiprun_out/lm_ranks.json``).  ``chip_smoke.py`` phase 17 runs the same
@@ -68,6 +77,8 @@ BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
 CHECK_CHUNK = 1 << 25          # elements a float64 check takes at once
 # (layers, d_model, d_ff, vocab) of the published configs the tool runs, and
 # an MoE config's (experts, top-k, expert width, shared, capacity factor)
+# step 5's prompts, their tokens and the new tokens
+SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE = 4, 64, 8
 PUBLISHED = {"qwen3-0.6b": ((28, 1024, 3072, 151_936), None),
              "deepseek-moe-16b": ((28, 2048, 1408, 102_400),
                                   (64, 6, 1408, 2, 1.25))}
@@ -99,6 +110,8 @@ def parse_args(argv=None):
                     help="the bf16 run's remat policy (default: the "
                          "config's)")
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--serve-check", action="store_true",
+                    help="step 5: prefill and decode on the mesh")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
                                                   "lm_ranks.json"))
@@ -408,6 +421,74 @@ def compressed_check(args, mesh, device) -> dict:
             "residual_max": float(err.abs().max())}
 
 
+def serve_check(args, cfg, mesh, device) -> dict:
+    """Step 5: the mesh's prefill and decode against one device's."""
+    from repro_torch.distributed.serving import ServingLM
+    from repro_torch.distributed.sharding import param_shardings, shard_leaf
+    from repro_torch.distributed.tensor_parallel import ShardedLM
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves, tree_paths, tree_unflatten
+
+    b, s, t = SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE
+    cache_len = s + t
+    gen = torch.Generator(device="cpu").manual_seed(args.seed + 7)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s + t), generator=gen
+                           ).to(device)
+    out = {}
+    for name, dtype, layers, rel in (
+            ("f32", "float32", args.check_layers, 1e-4),
+            ("bf16", "bfloat16", args.layers or cfg.num_layers, None)):
+        c = dataclasses.replace(cfg, num_layers=layers, param_dtype=dtype,
+                                compute_dtype=dtype)
+        rel = rel if rel is not None else 2.0 ** -8 * (6 * layers) ** 0.5
+        params = lm.init_params(c, args.seed, device=device)
+        with torch.no_grad():
+            logits, caches, _ = lm.forward(params, {"tokens": tokens[:, :s]},
+                                           c, mode="prefill",
+                                           cache_len=cache_len)
+            want = [logits[:, -1:]]
+            for i in range(t - 1):
+                lg, caches = lm.decode_step(params, tokens[:, s + i:s + i + 1],
+                                            caches, s + i, c)
+                want.append(lg)
+        del caches
+        specs = param_shardings(params, mesh)
+        blocks = tree_unflatten(params, [
+            shard_leaf(x, specs[p], mesh)
+            for x, p in zip(tree_leaves(params), tree_paths(params))])
+        shard = ShardedLM(c, mesh)
+        model = ServingLM(c, mesh, b, cache_len)
+        sblocks = model.shard_params(params)
+        del params
+        _sync(device)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            last, cblocks = shard.prefill(blocks, {"tokens": tokens[:, :s]},
+                                          cache_len=cache_len)
+            del blocks
+            got = [last]
+            for i in range(t - 1):
+                lg, cblocks = model.decode_step(
+                    sblocks, model.own(tokens[:, s + i:s + i + 1], 0,
+                                       model.rows), cblocks, s + i)
+                got.append(lg)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        worst = 0.0
+        for g, w in zip(got, want):
+            bound = rel * float(w.abs().max()) + 1e-5
+            worst = max(worst, float((g - w).abs().max()) / bound)
+        if not worst <= 1.0:
+            raise AssertionError(f"serve check {name}: the mesh's logits "
+                                 f"off by {worst:.3g} of the bound")
+        out[name] = {"layers": layers, "rel": rel, "worst_over_bound": worst,
+                     "batch": b, "prompt": s, "decode": t, "wall_s": wall}
+        del sblocks, cblocks
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
 def rank_work(args, device) -> dict:
     """Steps 1-4 on this rank of the default process group."""
     from repro_torch.configs import get_config
@@ -452,6 +533,10 @@ def rank_work(args, device) -> dict:
             shutil.rmtree(tmp[0], ignore_errors=True)
     del blocks
     out["compressed"] = compressed_check(args, mesh, device)
+    if args.serve_check:
+        t0 = time.perf_counter()
+        out["serve"] = serve_check(args, cfg, mesh, device)
+        out["serve"]["s"] = time.perf_counter() - t0
     return out
 
 
@@ -485,7 +570,12 @@ def summary(out: dict) -> str:
             f"{tuple(k['saved_on'])} -> {tuple(k['restored_on'])} and whole: "
             f"digests equal; "
             f"int8 mean over {q['data_ranks']} data ranks off by "
-            f"{q['max_abs_err']:.3g} (bound {q['bound']:.3g})")
+            f"{q['max_abs_err']:.3g} (bound {q['bound']:.3g})"
+            + ("" if "serve" not in out else
+               "; prefill + decode on the mesh vs one device: " + ", ".join(
+                   f"{k} {v['layers']} layers {v['worst_over_bound']:.3g} "
+                   f"of bound" for k, v in out["serve"].items()
+                   if isinstance(v, dict))))
 
 
 def _device_for(args, local_rank: int):
