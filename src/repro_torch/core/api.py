@@ -37,6 +37,7 @@ from repro_torch.core.plan import GEEPlan, PreparedGraph
 from repro_torch.graph.containers import EdgeList
 from repro_torch.graph.io import (DEFAULT_CHUNK_EDGES, ChunkedEdgeList,
                                   load_labels, open_edge_list)
+from repro_torch.obs import trace as obs_trace
 from repro_torch.search.index import (DEFAULT_PAD_MULTIPLE,
                                       ClassPartitionedIndex)
 
@@ -103,18 +104,22 @@ class GEEEmbedder:
     def fit(self, edges: "EdgeList | PreparedGraph", labels) -> "GEEEmbedder":
         """Fit an in-memory graph, moved to this embedder's device.  A
         ``PreparedGraph`` already there keeps its memoized prep artifacts
-        (refits, backend switches and option sweeps then share them)."""
-        device = resolve_device(self.device)
-        prepared = PreparedGraph.wrap(edges)
-        if prepared.device != device:
-            prepared = PreparedGraph(prepared.base.to(device))
-        self._prepared = prepared
-        self._chunked = None
-        self._labels = torch.as_tensor(labels).to(device=device,
-                                                  dtype=torch.int32)
-        self._z = None
-        self._inc = None
-        self._reset_index()
+        (refits, backend switches and option sweeps then share them).
+        Spans: ``api.fit``, and ``api.labels`` around the labels' upload
+        from pageable host memory."""
+        with obs_trace.span("api.fit"):
+            device = resolve_device(self.device)
+            prepared = PreparedGraph.wrap(edges)
+            if prepared.device != device:
+                prepared = PreparedGraph(prepared.base.to(device))
+            self._prepared = prepared
+            self._chunked = None
+            with obs_trace.span("api.labels"):
+                self._labels = torch.as_tensor(labels).to(device=device,
+                                                          dtype=torch.int32)
+            self._z = None
+            self._inc = None
+            self._reset_index()
         return self
 
     def fit_file(self, path: str, labels=None, **open_kw) -> "GEEEmbedder":
@@ -222,7 +227,8 @@ class GEEEmbedder:
                 self._z = self._inc.embedding()
             return self._z
         if self._z is None:
-            self._z = self._compute()
+            with obs_trace.span("api.transform"):
+                self._z = self._compute()
         return self._z
 
     def _compute(self) -> torch.Tensor:
@@ -243,12 +249,13 @@ class GEEEmbedder:
         # One plan over the shared PreparedGraph (the multi-device backends
         # included), so a refit, an option change or a backend switch
         # reuses every prep artifact.
-        return GEEPlan.build(
-            self._prepared, self.num_classes, self.options,
-            backend=self.backend, chunk_edges=self.chunk_edges,
-            prefetch_windows=self.prefetch_windows,
-            local_backend=self.local_backend, group=self.group,
-        ).execute(self._labels)
+        with obs_trace.span("plan.build"):
+            plan = GEEPlan.build(
+                self._prepared, self.num_classes, self.options,
+                backend=self.backend, chunk_edges=self.chunk_edges,
+                prefetch_windows=self.prefetch_windows,
+                local_backend=self.local_backend, group=self.group)
+        return plan.execute(self._labels)
 
     def fit_transform(self, edges: "EdgeList | PreparedGraph",
                       labels) -> torch.Tensor:

@@ -20,12 +20,15 @@ The kernels consume *planes*, built on the device by ``ell_planes``:
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.graph.containers import ELL, EdgeList
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 # Row padding of the packers.  It is the reference's TPU sublane height and
 # is kept so the packings are identical arrays; the CUDA kernels need no
@@ -148,7 +151,19 @@ def edges_to_bucketed_ell(edges: EdgeList, row_pad: int = SUBLANE,
                           device=None) -> BucketedELL:
     """Edge list -> degree-bucketed ELL on ``device`` (default: the
     edges').  Each row goes to the narrowest bucket whose width >= its
-    degree; empty rows go nowhere."""
+    degree; empty rows go nowhere.  Runs under a ``pack.bucketed_ell``
+    span, and observes its wall time, traced or not, into the registry's
+    ``pack.bucketed_ell_ms`` histogram (one observation a packing)."""
+    t0 = time.perf_counter()
+    with obs_trace.span("pack.bucketed_ell", nodes=edges.num_nodes):
+        out = _bucketed_ell(edges, row_pad, widths, max_degree, device)
+    obs_metrics.get_registry().histogram("pack.bucketed_ell_ms").observe(
+        (time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _bucketed_ell(edges: EdgeList, row_pad: int, widths, max_degree,
+                  device) -> BucketedELL:
     n = edges.num_nodes
     src, dst, w, counts, slot = _group_edges_by_row(edges, max_degree)
     dmax = max(int(counts.max()) if counts.size else 1, 1)

@@ -38,6 +38,7 @@ from repro_torch.graph.ell import (BucketedELL, bucketed_degrees,
 from repro_torch.kernels.build import check_tensor
 from repro_torch.kernels.gee_spmm import launch_contraction
 from repro_torch.kernels.ref import gee_spmm_fused_ref
+from repro_torch.obs import trace as obs_trace
 
 ENV_FUSED = "REPRO_GEE_FUSED"
 
@@ -153,42 +154,58 @@ def gee_fused_from_bucketed(bell: BucketedELL, labels: torch.Tensor,
     so each row's whole contraction and epilogue complete inside one
     launch, and results scatter back by assignment (never addition).
     Degree-0 rows live in no bucket; the residual fixup applies the shared
-    epilogue to them.
+    epilogue to them.  Spans: ``prep.class_weights``, ``prep.degrees``;
+    per bucket (tag ``bucket``) ``prep.laplacian_vals``, ``prep.planes``,
+    ``prep.diag_addend`` and ``kernel.gee_fused`` (the launch and the
+    scatter back); ``prep.residual_fixup``.
     """
     n = bell.num_nodes
     dev = bell.buckets[0].cols.device if bell.buckets else (
         torch.as_tensor(labels).device)
     labels = torch.as_tensor(labels).to(device=dev, dtype=torch.int32)
-    winv = class_weight_inv(labels, num_classes)
+    span = obs_trace.span
+    with span("prep.class_weights"):
+        winv = class_weight_inv(labels, num_classes)
 
-    if opts.laplacian:
-        deg = bucketed_degrees(bell, dev)
-        if opts.diag_aug:
-            deg = deg + 1.0                # the un-packed self loop
-        dinv = inv_sqrt_degrees(deg)
-    else:
-        dinv = torch.ones(n, dtype=torch.float32, device=dev)
+    with span("prep.degrees"):
+        if opts.laplacian:
+            deg = bucketed_degrees(bell, dev)
+            if opts.diag_aug:
+                deg = deg + 1.0                # the un-packed self loop
+            dinv = inv_sqrt_degrees(deg)
+        else:
+            dinv = torch.ones(n, dtype=torch.float32, device=dev)
 
     z = torch.zeros((n, num_classes), dtype=torch.float32, device=dev)
     covered = torch.zeros(n, dtype=torch.bool, device=dev)
-    for b in bell.buckets:
+    for i, b in enumerate(bell.buckets):
         b = b.real_rows()
-        rows = b.row_ids.long()
-        vals = laplacian_vals(b, dinv) if opts.laplacian else b.vals
-        ylab, contrib = ell_planes(b.cols, vals, labels, winv)
-        rowlab, dadd = _diag_addend(labels[rows], winv, dinv[rows],
-                                    opts.diag_aug)
-        z[rows] = gee_spmm_fused(ylab, contrib, rowlab, dadd, num_classes,
-                                 correlation=opts.correlation)
-        covered[rows] = True
+        if opts.laplacian:
+            with span("prep.laplacian_vals", bucket=i):
+                vals = laplacian_vals(b, dinv)
+        else:
+            vals = b.vals
+        with span("prep.planes", bucket=i):
+            ylab, contrib = ell_planes(b.cols, vals, labels, winv)
+        with span("prep.diag_addend", bucket=i):
+            rows = b.row_ids.long()
+            rowlab, dadd = _diag_addend(labels[rows], winv, dinv[rows],
+                                        opts.diag_aug)
+        with span("kernel.gee_fused", bucket=i):
+            z[rows] = gee_spmm_fused(ylab, contrib, rowlab, dadd,
+                                     num_classes,
+                                     correlation=opts.correlation)
+            covered[rows] = True
 
     # Residual fixup: degree-0 rows (no bucket) still owe the diag-aug
     # term and the row norm -- the identical shared-epilogue arithmetic.
     if opts.diag_aug or opts.correlation:
-        z_res = apply_epilogue(
-            torch.zeros((n, num_classes), dtype=torch.float32, device=dev),
-            labels, winv, dinv, opts=opts, impl="torch")
-        z = torch.where(covered[:, None], z, z_res)
+        with span("prep.residual_fixup"):
+            z_res = apply_epilogue(
+                torch.zeros((n, num_classes), dtype=torch.float32,
+                            device=dev),
+                labels, winv, dinv, opts=opts, impl="torch")
+            z = torch.where(covered[:, None], z, z_res)
     return z
 
 

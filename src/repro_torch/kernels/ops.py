@@ -26,6 +26,7 @@ from repro_torch.graph.ell import (BucketedELL, bucketed_degrees,
                                    edges_to_bucketed_ell, edges_to_ell,
                                    ell_planes, laplacian_vals)
 from repro_torch.kernels.gee_spmm import gee_spmm
+from repro_torch.obs import trace as obs_trace
 
 
 def _reject_diag_aug(opts: GEEOptions) -> None:
@@ -63,23 +64,35 @@ def gee_cuda_from_bucketed(bell: BucketedELL, labels: torch.Tensor,
     """GEE from a degree-bucketed ELL tiling: one ``gee_spmm`` launch per
     bucket on its real rows (the bucket's padding rows are its trailing
     ones); rows are disjoint across buckets, so outputs scatter back by
-    assignment."""
+    assignment.  Spans: ``prep.class_weights``, ``prep.degrees`` (with
+    the Laplacian); per bucket (tag ``bucket``) ``prep.laplacian_vals``
+    (with the Laplacian), ``prep.planes`` and ``kernel.gee_spmm`` (the
+    launch and the scatter back)."""
     _reject_diag_aug(opts)
     n = bell.num_nodes
     dev = bell.buckets[0].cols.device if bell.buckets else (
         torch.as_tensor(labels).device)
     labels = torch.as_tensor(labels).to(device=dev, dtype=torch.int32)
-    winv = class_weight_inv(labels, num_classes)
+    span = obs_trace.span
+    with span("prep.class_weights"):
+        winv = class_weight_inv(labels, num_classes)
 
-    dinv = inv_sqrt_degrees(bucketed_degrees(bell, dev)) if opts.laplacian \
-        else None
+    dinv = None
+    if opts.laplacian:
+        with span("prep.degrees"):
+            dinv = inv_sqrt_degrees(bucketed_degrees(bell, dev))
 
     z = torch.zeros((n, num_classes), dtype=torch.float32, device=dev)
-    for b in bell.buckets:
+    for i, b in enumerate(bell.buckets):
         b = b.real_rows()
-        vals = b.vals if dinv is None else laplacian_vals(b, dinv)
-        ylab, contrib = ell_planes(b.cols, vals, labels, winv)
-        z[b.row_ids.long()] = gee_spmm(ylab, contrib, num_classes)
+        vals = b.vals
+        if dinv is not None:
+            with span("prep.laplacian_vals", bucket=i):
+                vals = laplacian_vals(b, dinv)
+        with span("prep.planes", bucket=i):
+            ylab, contrib = ell_planes(b.cols, vals, labels, winv)
+        with span("kernel.gee_spmm", bucket=i):
+            z[b.row_ids.long()] = gee_spmm(ylab, contrib, num_classes)
     if opts.correlation:
         z = row_l2_normalize(z.contiguous(), impl="cuda")
     return z

@@ -5,8 +5,9 @@ drivers (port of ``repro/obs/cli.py``).
 * :func:`setup` enables the global tracer when ``--trace`` was given
   (before any instrumented work runs);
 * :func:`finish` writes the Chrome/Perfetto trace JSON and the
-  metrics-registry snapshot, printing where they went and the plan-stage
-  span coverage (:func:`plan_span_coverage`).
+  metrics-registry snapshot, printing where they went, the plan-stage
+  span coverage (:func:`plan_span_coverage`) and the device clock's
+  anchors and drift (:func:`device_clock_line`).
 """
 
 from __future__ import annotations
@@ -34,22 +35,33 @@ def setup(args) -> None:
 
 def plan_span_coverage(tracer: obs_trace.Tracer | None = None):
     """Fraction of the last ``plan.execute`` span covered by its direct
-    ``plan.stage.*`` children, or ``None`` when no plan ran under the
-    tracer.  Near 1.0 the stage spans account for the fit's time instead
-    of hiding it between spans."""
+    children (the ``plan.stage.*`` spans), or ``None`` when no plan ran
+    under the tracer.  Near 1.0 the stage spans account for the fit's
+    time instead of hiding it between spans."""
     tr = tracer if tracer is not None else obs_trace.get_tracer()
     events = tr.events()
     roots = [e for e in events if e.name == "plan.execute"]
     if not roots:
         return None
     root = roots[-1]
-    lo, hi = root.ts_us, root.ts_us + root.dur_us
-    stage_us = sum(
-        e.dur_us for e in events
-        if e.name.startswith("plan.stage.") and e.tid == root.tid
-        and e.depth == root.depth + 1
-        and lo <= e.ts_us and e.ts_us + e.dur_us <= hi + 1.0)
-    return stage_us / root.dur_us if root.dur_us > 0 else None
+    if root.dur_us <= 0:
+        return None
+    own = obs_trace.self_times(
+        [root] + [e for e in events if e.parent_id == root.span_id])
+    return 1.0 - own[root.span_id] / root.dur_us
+
+
+def device_clock_line(tracer: obs_trace.Tracer | None = None):
+    """The device clock's anchors (bracket widths) and drift, one line,
+    or ``None`` when no span recorded device events."""
+    tr = tracer if tracer is not None else obs_trace.get_tracer()
+    dev = tr.metadata()["device"]
+    if dev is None:
+        return None
+    widths = ", ".join(f"{w:.1f}" for w in dev["anchor_width_us"])
+    return (f"  device clock: anchors bracket {widths} us; drift "
+            f"{dev['drift_us']:.1f} us over {dev['span_us'] / 1e6:.3f} s "
+            f"({dev['drift_ppm']:.1f} ppm)")
 
 
 def finish(args) -> None:
@@ -65,6 +77,9 @@ def finish(args) -> None:
         if cov is not None:
             line += f"  [plan stages cover {cov * 100:.1f}% of fit time]"
         print(line)
+        clock = device_clock_line(tr)
+        if clock is not None:
+            print(clock)
     if getattr(args, "metrics_out", None):
         obs_metrics.get_registry().write_json(args.metrics_out)
         print(f"  metrics -> {args.metrics_out}")

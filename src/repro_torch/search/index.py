@@ -37,6 +37,7 @@ from repro_torch.kernels.topk_score import (fused_topk_enabled,
                                             pairwise_scores, scored_topk,
                                             scored_topk_gathered)
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 DEFAULT_PAD_MULTIPLE = 128
 
@@ -217,10 +218,17 @@ class ClassPartitionedIndex:
         device.  Returns ``(ids [Q, k] int32, scores [Q, k] f32)`` there;
         ``ids == -1`` marks slots with fewer than k reachable candidates.
         ``nprobe >= num_cells`` (or ``brute_force=True``) is exact.
+        Spans: ``index.search``, inside it ``index.upload`` (the queries to
+        the device) and, probing, ``_ivf_search``'s.
         """
-        if not isinstance(queries, torch.Tensor):
-            queries = torch.from_numpy(np.array(queries, np.float32))
-        queries = queries.to(device=self.device, dtype=torch.float32)
+        with obs_trace.span("index.search"):
+            return self._search(queries, k, nprobe, brute_force)
+
+    def _search(self, queries, k, nprobe, brute_force):
+        with obs_trace.span("index.upload"):
+            if not isinstance(queries, torch.Tensor):
+                queries = torch.from_numpy(np.array(queries, np.float32))
+            queries = queries.to(device=self.device, dtype=torch.float32)
         squeeze = queries.dim() == 1
         if squeeze:
             queries = queries[None, :]
@@ -329,22 +337,28 @@ def _exact_search(queries, z, *, k, metric, fused=False):
 
 def _ivf_search(queries, z, centroids, active, table, *, k, nprobe, metric,
                 fused=False):
-    """Probe -> gather -> batched masked score -> top-k."""
-    cscores = pairwise_scores(queries, centroids, active,
-                              metric=metric)                    # [Q, C]
-    # the nprobe best cells, equal scores in ascending cell order (the
-    # reference's stable top_k)
-    cells = torch.sort(cscores, dim=1, descending=True,
-                       stable=True).indices[:, :nprobe]         # [Q, P]
-    ids = table[cells]                                          # [Q, P, B]
-    q = ids.shape[0]
-    ids = ids.reshape(q, nprobe * table.shape[1]).contiguous()  # [Q, P*B]
-    # Over-probing (nprobe > active cells) selects NEG_INF cells whose
-    # table rows are all -1 -- masked out below, never scored as real.
-    cand = z[ids.clamp(0, z.shape[0] - 1).long()]              # [Q, P*B, K]
-    mask = (ids >= 0).to(torch.float32)
-    return scored_topk_gathered(queries, cand, mask, ids, k, metric=metric,
-                                fused=fused)
+    """Probe -> gather -> batched masked score -> top-k.  Spans:
+    ``index.probe``, ``index.candidates`` (the cell sort, the table and Z
+    gathers, the mask), ``index.topk``."""
+    span = obs_trace.span
+    with span("index.probe"):
+        cscores = pairwise_scores(queries, centroids, active,
+                                  metric=metric)                # [Q, C]
+    with span("index.candidates"):
+        # the nprobe best cells, equal scores in ascending cell order (the
+        # reference's stable top_k)
+        cells = torch.sort(cscores, dim=1, descending=True,
+                           stable=True).indices[:, :nprobe]     # [Q, P]
+        ids = table[cells]                                      # [Q, P, B]
+        q = ids.shape[0]
+        ids = ids.reshape(q, nprobe * table.shape[1]).contiguous()
+        # Over-probing (nprobe > active cells) selects NEG_INF cells whose
+        # table rows are all -1 -- masked out below, never scored as real.
+        cand = z[ids.clamp(0, z.shape[0] - 1).long()]          # [Q, P*B, K]
+        mask = (ids >= 0).to(torch.float32)
+    with span("index.topk"):
+        return scored_topk_gathered(queries, cand, mask, ids, k,
+                                    metric=metric, fused=fused)
 
 
 __all__ = ["DEFAULT_PAD_MULTIPLE", "ClassPartitionedIndex", "default_nprobe",

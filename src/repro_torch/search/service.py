@@ -16,7 +16,12 @@ index buckets (``ClassPartitionedIndex.update_rows`` on just the stale
 rows) instead of rebuilding.  A label flip moves the global 1/n_k scaling
 and invalidates every row; the repair then re-scores all rows against the
 fixed centroids but never re-derives the cell structure.  Spans:
-``serve.query_flush``, ``serve.query_repair``, ``serve.delta_flush``.
+``serve.query_flush`` (tagged ``oldest_wait_us``, the oldest ticket's
+wait from submit to flush, while the tracer is on), inside it
+``serve.query_repair``, ``serve.flush.rows`` (the row tickets' gathers and
+copies, the concatenation and padding), ``index.search`` and
+``serve.flush.answers`` (the answers' copies to the host, handed to the
+tickets); ``serve.delta_flush``.
 """
 
 from __future__ import annotations
@@ -56,6 +61,8 @@ class QueryTicket:
     ids: Optional[np.ndarray] = None
     scores: Optional[np.ndarray] = None
     done: bool = False
+    # the tracer's clock at submit, kept only while the tracer is enabled
+    submitted_ns: Optional[int] = None
 
 
 class GEEQueryService:
@@ -147,6 +154,9 @@ class GEEQueryService:
         return self._uid
 
     def _enqueue(self, ticket: QueryTicket, n_queries: int) -> QueryTicket:
+        tr = obs_trace.get_tracer()
+        if tr.enabled:
+            ticket.submitted_ns = tr.now_ns()
         if self.max_pending is not None \
                 and self._pending + n_queries > self.max_pending:
             self.stats["shed_queries"] += n_queries
@@ -183,6 +193,10 @@ class GEEQueryService:
         t0 = time.perf_counter()
         with obs_trace.span("serve.query_flush",
                             pending=self._pending) as sp:
+            oldest = self._queue[0].submitted_ns
+            if oldest is not None:
+                sp.tag(oldest_wait_us=(obs_trace.get_tracer().now_ns()
+                                       - oldest) // 1000)
             tickets = self._flush_batch(sp)
         elapsed = time.perf_counter() - t0
         self.stats["flush_ms"].append(elapsed * 1e3)
@@ -200,32 +214,34 @@ class GEEQueryService:
 
         tickets, self._queue = self._queue, []
         self._pending = 0
-        # Row tickets gather only their rows on the device, then copy them
-        # to the host -- never the whole [N, K] database.
-        z = self.index.z
-        blocks = [t.queries if t.queries is not None
-                  else z[torch.from_numpy(t.rows).to(z.device)].cpu().numpy()
-                  for t in tickets]
-        counts = [b.shape[0] for b in blocks]
-        q = np.concatenate(blocks, axis=0)
-        total = q.shape[0]
-        target = -(-total // self.pad_multiple) * self.pad_multiple
-        if target > total:
-            q = np.concatenate(
-                [q, np.zeros((target - total, q.shape[1]), np.float32)],
-                axis=0)
+        with obs_trace.span("serve.flush.rows", tickets=len(tickets)):
+            # Row tickets gather only their rows on the device, then copy
+            # them to the host -- never the whole [N, K] database.
+            z = self.index.z
+            blocks = [t.queries if t.queries is not None
+                      else z[torch.from_numpy(t.rows).to(z.device)]
+                      .cpu().numpy()
+                      for t in tickets]
+            counts = [b.shape[0] for b in blocks]
+            q = np.concatenate(blocks, axis=0)
+            total = q.shape[0]
+            target = -(-total // self.pad_multiple) * self.pad_multiple
+            if target > total:
+                q = np.concatenate(
+                    [q, np.zeros((target - total, q.shape[1]), np.float32)],
+                    axis=0)
         self.stats["pad_queries"] += target - total
         k_max = max(t.k for t in tickets)
         ids, scores = self.index.search(q, k_max, nprobe=self.nprobe)
-        ids = ids.cpu().numpy()
-        scores = scores.cpu().numpy()
-
-        off = 0
-        for t, c in zip(tickets, counts):
-            t.ids = ids[off:off + c, :t.k]
-            t.scores = scores[off:off + c, :t.k]
-            t.done = True
-            off += c
+        with obs_trace.span("serve.flush.answers"):
+            ids = ids.cpu().numpy()
+            scores = scores.cpu().numpy()
+            off = 0
+            for t, c in zip(tickets, counts):
+                t.ids = ids[off:off + c, :t.k]
+                t.scores = scores[off:off + c, :t.k]
+                t.done = True
+                off += c
         self.stats["flushes"] += 1
         self.stats["queries_scored"] += total
         sp.tag(queries=total)

@@ -280,9 +280,15 @@ def test_service_spans_and_metrics(embedded):
             svc.flush()
     finally:
         t_trace.set_tracer(prev)
-    names = [e.name for e in tracer.events()]
-    assert names == ["serve.query_repair", "serve.query_flush"]
-    assert tracer.events()[1].args["queries"] == 5
+    events = tracer.events()
+    roots = [e for e in events if e.parent_id is None]
+    assert [e.name for e in roots] == ["serve.query_flush"]
+    # the reference's two spans, and the port's inside the flush
+    names = [e.name for e in events if e.depth <= 1]
+    assert names == ["serve.query_repair", "serve.flush.rows",
+                     "index.search", "serve.flush.answers",
+                     "serve.query_flush"]
+    assert roots[0].args["queries"] == 5
     assert "serve.query_flush" in {e.key for e in prof.key_averages()}
     snap = t_metrics.get_registry().snapshot()
     assert snap["counters"][f"{svc.stats.scope}.flushes"] == 1
