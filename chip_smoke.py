@@ -111,10 +111,13 @@ read just after; phase 11 counts its own checks apart, phase 12 its
 replay.  Every kernel is timed with CUDA events beside its bound;
 the two contraction kernels also per degree bucket with the L2 flushed,
 with the device work one bucket launch enqueues, and a warm fit's device
-time split by prep pass; ``pairwise_scores`` at its three shapes (index
-build, a flush's probe, the staged brute force) with the kernels one call
-launches, both top-k kernels at other chunk counts and widths of top-k, and
-the device time of a fused flush.
+time split by prep pass; the gathered launch the bucketed drivers make
+(phase 6b) held bit for bit to the plane launch on every bucket of both
+graphs under the 8 settings, and timed beside its bound, the plane kernel,
+the plane passes it replaces and its plain version; ``pairwise_scores``
+at its three shapes (index build, a flush's probe, the staged brute force)
+with the kernels one call launches, both top-k kernels at other chunk
+counts and widths of top-k, and the device time of a fused flush.
 The line before the last lists the seven kernels; the last line of standard
 output is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before those lines.  Details go to ``chiprun_out/chip_smoke.json``.
@@ -780,22 +783,35 @@ def row_norm_edge_cases(torch, row_norm, row_norm_ref, gee_spmm_fused, rng,
     return n_cases
 
 
+def contraction_bytes(a) -> int:
+    """The bytes a contraction launch must move, from its arguments: a
+    gathered launch (``cols, vals, row_ids, verts, winv, out, K``) 8 B a
+    slot, 4 B a row id and 4 B an output (a fit's gathered launches also
+    read its [N] vertex records once, 8 B a vertex, which the caller adds);
+    a plane launch 8 B a slot, 4 B an output and, fused (``ylab, contrib,
+    rowlab, dadd, K``), 8 B a row of rowlab/dadd."""
+    r, d = a[0].shape
+    k = a[-1]
+    if len(a) == 7:
+        return 8 * r * d + 4 * r * (1 + k)
+    return 8 * r * d + 4 * r * k + (8 * a[2].numel() if len(a) == 5 else 0)
+
+
 def bucket_table(torch, fn, calls, bell, flush) -> dict:
-    """One contraction kernel on each bucket launch of a fit (``calls``, in
-    bucket order): real and padded rows (``bell``'s packing), width, bytes
-    (8 B a launched slot, 4 B an output, 8 B a row of rowlab/dadd), the
-    bytes bound and the time alone with L2 flushed before each rep.  Also
+    """One contraction launch on each bucket of a fit (``calls``, in bucket
+    order): real and padded rows (``bell``'s packing), width, bytes
+    (``contraction_bytes``), the bytes bound and the time alone with L2
+    flushed before each rep.  Also
     the device work one launch enqueues (``graph_nodes``) at the narrowest
     and the widest bucket (a split row: ticket and workspace included):
     anything but one kernel fails the run."""
     rows = []
     for (a, kw), b in zip(calls, bell.buckets):
         r, d = a[0].shape
-        k = a[4] if len(a) > 4 else a[2]
         if r != b.num_rows or d != b.width:
             raise AssertionError(f"launch [{r}, {d}] is not bucket "
                                  f"[{b.num_rows} real rows, {b.width}]")
-        nbytes = 8 * r * d + 4 * r * k + (8 * r if len(a) > 4 else 0)
+        nbytes = contraction_bytes(a)
         rows.append({"R": r, "R_pad": int(b.row_ids.shape[0]), "D": d,
                      "bytes": nbytes,
                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -816,11 +832,11 @@ def bucket_table(torch, fn, calls, bell, flush) -> dict:
 
 
 # The functions the fused driver calls, whose device time a warm fit splits
-# into: the class weights, the degrees and the Laplacian scale, the planes,
-# the diag addend, the kernel and the residual fixup of degree-0 rows.
+# into: the class weights, the degrees and the Laplacian scale, the residual
+# fixup of degree-0 rows, the vertex records and the buckets' gathered
+# launches.
 PREP_PASSES = ("class_weight_inv", "bucketed_degrees", "inv_sqrt_degrees",
-               "laplacian_vals", "ell_planes", "_diag_addend",
-               "gee_spmm_fused", "apply_epilogue")
+               "apply_epilogue", "vertex_records", "gee_spmm_gathered")
 
 
 def prep_passes(torch, module, fit) -> dict:
@@ -830,9 +846,8 @@ def prep_passes(torch, module, fit) -> dict:
     sequence and timed by ``gpu_ms`` behind a long sleep kernel, so no host
     time shows (CUDA events around each pass inside the fit read the
     kernel pass at 0.68 ms on cl-100k-1d8-l5, where its launches take 0.13:
-    host gaps).  What the passes leave of the fit's device time is the
-    scatter ``z[rows] = out``, the covered mask, the final ``where`` and
-    gaps."""
+    host gaps).  What the passes leave of the fit's device time is Z's
+    zeros, the fixup's ones and gaps."""
     calls = {n: [] for n in PREP_PASSES}
     originals = {n: getattr(module, n) for n in PREP_PASSES}
 
@@ -855,6 +870,262 @@ def prep_passes(torch, module, fit) -> dict:
                                       for a, kw in calls[n]],
                       reps=10, sleep_cycles=20_000_000)
             for n in PREP_PASSES}
+
+
+def planes_of(torch, args, kwargs, fused: bool):
+    """The plane kernel call a gathered launch stands for: ``(args,
+    kwargs)`` of ``gee_spmm_fused`` (``fused``) or ``gee_spmm`` on the
+    planes ``ref.gathered_planes`` makes from the launch's operands, its
+    rows in ``row_ids`` order."""
+    from repro_torch.kernels.ref import gathered_planes
+
+    cols, vals, row_ids, verts, winv, _, k = args
+    _, ylab, contrib, rowlab, dadd = gathered_planes(
+        cols, vals, row_ids, verts, winv,
+        laplacian=kwargs.get("laplacian", False),
+        diag_aug=kwargs.get("diag_aug", False))
+    if not fused:
+        return (ylab, contrib, k), {}
+    return ((ylab, contrib, rowlab, dadd, k),
+            {"correlation": kwargs.get("correlation", False)})
+
+
+# Phase 6b's edge cases: (R, D, K) of random gathered operands -- widths
+# off the 16-byte loads (D % 4 != 0, which the wrapper hands to the plane
+# kernel), a warp's 2,048 slots and past it, a split row (D > SPAN), class
+# tiles (K > 8) and K = 1, each of the last two also at a width the gathered
+# kernel takes.
+GATHERED_EDGE_SHAPES = ((37, 3, 1), (37, 12, 1), (300, 8, 5), (64, 130, 9),
+                        (64, 132, 9), (40, 2048, 5), (9, 2052, 33),
+                        (3, 9000, 5), (2, 8196, 40), (500, 16, 8))
+
+
+def gathered_edge_cases(torch) -> int:
+    """The gathered launch against the plane launch (``planes_of``), bit for
+    bit, on random operands at ``GATHERED_EDGE_SHAPES`` under each of the 8
+    option settings: neighbour ids partly outside [0, N) (clamped), zero and
+    negative weights, unlabeled vertices, a permuted subset of rows in a Z
+    filled with ``SENTINEL``.  Returns the count of launches held."""
+    from repro_torch.core.gee import ALL_OPTION_SETTINGS, class_weight_inv
+    from repro_torch.kernels.gee_fused import (gee_spmm_fused,
+                                               gee_spmm_gathered,
+                                               vertex_records)
+
+    rng = np.random.default_rng(5)
+    held = 0
+    for r, d, k in GATHERED_EDGE_SHAPES:
+        n = 2 * r + 7
+        cols = rng.integers(-3, n + 3, (r, d)).astype(np.int32)
+        vals = rng.uniform(-1.0, 2.0, (r, d)).astype(np.float32)
+        vals[rng.random((r, d)) < 0.3] = 0.0
+        labels = rng.integers(-1, k, n).astype(np.int32)
+        dinv = rng.uniform(0.0, 1.5, n).astype(np.float32)
+        dinv[rng.random(n) < 0.1] = 0.0
+        t = {name: torch.from_numpy(v).to(DEVICE) for name, v in (
+            ("cols", cols), ("vals", vals), ("labels", labels),
+            ("dinv", dinv),
+            ("row_ids", rng.permutation(n)[:r].astype(np.int32)))}
+        winv = class_weight_inv(t["labels"], k)
+        for opts in ALL_OPTION_SETTINGS:
+            verts = vertex_records(t["labels"],
+                                   t["dinv"] if opts.laplacian else None)
+            flags = {"laplacian": opts.laplacian, "diag_aug": opts.diag_aug,
+                     "correlation": opts.correlation}
+            args = (t["cols"], t["vals"], t["row_ids"], verts, winv,
+                    torch.full((n, k), SENTINEL, device=DEVICE), k)
+            got = gee_spmm_gathered(*args, **flags)
+            a, kw = planes_of(torch, args, flags, True)
+            want = torch.full((n, k), SENTINEL, device=DEVICE)
+            want[t["row_ids"].long()] = gee_spmm_fused(*a, **kw)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"gathered edge case R={r} D={d} K={k} {opts.tag()}: "
+                    f"{int((got != want).sum())} entries differ from the "
+                    f"plane launch")
+            held += 1
+    return held
+
+
+# Labels hidden (set to -1) in phase 6b's fits, as in a fold of the
+# benchmark's refit traffic.
+GATHERED_HIDE = 0.2
+SENTINEL = -7.25
+
+
+def gathered_phase(torch, card, graphs, prepared, flush) -> dict:
+    """Phase 6b: the gathered launch (``gee_spmm_gathered``) held to the
+    plane launch it replaces, bit for bit, and timed.
+
+    For both graphs, the graph's labels with a seeded ``GATHERED_HIDE`` set
+    to -1: under each of the 8 option settings the fused driver's operands
+    (the base packing; ``dinv`` of degree + 1 with diag-aug), and with and
+    without the Laplacian the staged driver's (the packing of A + I, no
+    epilogue).  For every bucket, its real rows launched into a Z filled
+    with ``SENTINEL`` must equal (``torch.equal``, every entry, so the rows
+    outside the bucket are untouched too) the plane passes
+    (``planes_of``) and ``gee_spmm_fused`` / ``gee_spmm`` scattered into
+    another; the whole bucket with its padding rows (dump row N) must give
+    the same Z; and the plain version holds it to ``max_err``.  The widest
+    buckets of cl-100k-1d8-l5 take split rows (``spans`` > 1).
+
+    Timing, default options, the fused driver's launches of one fit:
+    the gathered launches against their bytes bound (8 B a slot, 4 B a row
+    id, 4 B an output, and the fit's [N] vertex records read once), the
+    plane kernel on the planes, the plane passes with the kernel and the
+    scatter, the plain version; each bucket alone with L2 flushed, gathered
+    against plane kernel; and the kernels one launch enqueues at the
+    narrowest and widest bucket (anything but one fails the run)."""
+    from repro_torch.core.epilogue import inv_sqrt_degrees
+    from repro_torch.core.gee import (ALL_OPTION_SETTINGS, GEEOptions,
+                                      class_weight_inv)
+    from repro_torch.graph.ell import bucketed_degrees
+    from repro_torch.kernels import gee_spmm as gs
+    from repro_torch.kernels.gee_fused import (gee_spmm_fused,
+                                               gee_spmm_gathered,
+                                               vertex_records)
+    from repro_torch.kernels.gee_spmm import gee_spmm
+    from repro_torch.kernels.ref import gee_spmm_gathered_ref
+
+    out = {"checks": 0, "errs": [], "graphs": {}}
+    t0 = time.perf_counter()
+    out["edge_cases"] = gathered_edge_cases(torch)
+    for g, (edges, labels_np, k) in graphs.items():
+        n = edges.num_nodes
+        hide = np.random.default_rng(7).random(labels_np.size) < GATHERED_HIDE
+        labels = torch.from_numpy(
+            np.where(hide, -1, labels_np).astype(np.int32)).to(DEVICE)
+        winv = class_weight_inv(labels, k)
+        configs = [(o, False) for o in ALL_OPTION_SETTINGS] + [
+            (GEEOptions(laplacian=lap), True) for lap in (True, False)]
+        shapes, split = set(), set()
+        for opts, staged in configs:
+            bell = prepared[g].bucketed_ell(staged)
+            dinv = None
+            if opts.laplacian:
+                deg = bucketed_degrees(bell, DEVICE)
+                dinv = inv_sqrt_degrees(deg + 1.0 if opts.diag_aug else deg)
+            verts = vertex_records(labels, dinv)
+            flags = {"laplacian": opts.laplacian}
+            if not staged:
+                flags.update(diag_aug=opts.diag_aug,
+                             correlation=opts.correlation)
+            plane_fn = gee_spmm if staged else gee_spmm_fused
+            for b in bell.buckets:
+                real = b.real_rows()
+                r, d = real.cols.shape
+
+                def launch(bk):
+                    z = torch.full((n, k), SENTINEL, device=DEVICE)
+                    return gee_spmm_gathered(bk.cols, bk.vals, bk.row_ids,
+                                             verts, winv, z, k, **flags)
+
+                got = launch(real)
+                args = (real.cols, real.vals, real.row_ids, verts, winv,
+                        None, k)
+                a, kw = planes_of(torch, args, flags, not staged)
+                want = torch.full((n, k), SENTINEL, device=DEVICE)
+                want[real.row_ids.long()] = plane_fn(*a, **kw)
+                what = (f"{g} {opts.tag()} {'staged' if staged else 'fused'}"
+                        f" bucket [{r}, {d}]")
+                if not torch.equal(got, want):
+                    off = int((got != want).sum())
+                    raise AssertionError(f"{what}: the gathered launch "
+                                         f"differs from the plane launch in "
+                                         f"{off} entries")
+                if not torch.equal(launch(b), got):
+                    raise AssertionError(f"{what}: the padded bucket "
+                                         f"differs from its real rows")
+                plain = gee_spmm_gathered_ref(
+                    *args[:5], torch.full((n, k), SENTINEL, device=DEVICE),
+                    k, **flags, eps=1e-30)
+                out["errs"].append(max_err(torch, got, plain))
+                out["checks"] += 1
+                shapes.add((r, d))
+                geometry = gs.resolve_geometry(gs.GATHERED_KERNEL_NAME, d, k,
+                                               gs._vec(real.cols, real.vals))
+                if geometry[2] > 1:
+                    split.add((r, d, geometry[2]))
+        out["graphs"][g] = {"shapes": sorted(shapes), "split": sorted(split)}
+    if not any(out["graphs"]["cl-100k-1d8-l5"]["split"]):
+        raise AssertionError("no bucket of cl-100k-1d8-l5 split a row")
+    torch.cuda.synchronize()
+    out["check_s"] = time.perf_counter() - t0
+
+    timing = {}
+    for g, (edges, labels_np, k) in graphs.items():
+        n = edges.num_nodes
+        hide = np.random.default_rng(7).random(labels_np.size) < GATHERED_HIDE
+        labels = torch.from_numpy(
+            np.where(hide, -1, labels_np).astype(np.int32)).to(DEVICE)
+        winv = class_weight_inv(labels, k)
+        bell = prepared[g].bucketed_ell(False)
+        dinv = inv_sqrt_degrees(bucketed_degrees(bell, DEVICE) + 1.0)
+        verts = vertex_records(labels, dinv)
+        flags = {"laplacian": True, "diag_aug": True, "correlation": True}
+        z = torch.zeros((n, k), device=DEVICE)
+        calls = [((b.cols, b.vals, b.row_ids, verts, winv, z, k), flags)
+                 for b in (b.real_rows() for b in bell.buckets)]
+        planes = [planes_of(torch, a, kw, True) for a, kw in calls]
+        rows = [a[2].long() for a, _ in calls]
+
+        def plane_passes():
+            for (a, kw), rw in zip(calls, rows):
+                pa, pkw = planes_of(torch, a, kw, True)
+                z[rw] = gee_spmm_fused(*pa, **pkw)
+
+        nbytes = sum(8 * a[0].numel() + 4 * a[0].shape[0] * (1 + k)
+                     for a, _ in calls) + 8 * n       # + verts, read once
+        t = {"launches_per_fit": len(calls), "bytes": nbytes,
+             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "ms": gpu_ms(torch, lambda: [gee_spmm_gathered(*a, **kw)
+                                          for a, kw in calls],
+                          sleep_cycles=5_000_000),
+             "plane_kernel_ms": gpu_ms(torch, lambda: [
+                 gee_spmm_fused(*a, **kw) for a, kw in planes],
+                 sleep_cycles=5_000_000),
+             "plane_passes_ms": gpu_ms(torch, plane_passes, reps=10,
+                                       sleep_cycles=20_000_000),
+             "plain_ms": gpu_ms(torch, lambda: [
+                 gee_spmm_gathered_ref(*a, **kw, eps=1e-30)
+                 for a, kw in calls], reps=10, sleep_cycles=20_000_000)}
+        t["buckets"] = [
+            {"R": a[0].shape[0], "D": a[0].shape[1],
+             "ms": gpu_ms_cold(torch, lambda: gee_spmm_gathered(*a, **kw),
+                               flush),
+             "plane_ms": gpu_ms_cold(torch, lambda: gee_spmm_fused(*pa, **pkw),
+                                     flush)}
+            for (a, kw), (pa, pkw) in zip(calls, planes)]
+        per_launch = {}
+        for i in (0, len(calls) - 1):
+            a, kw = calls[i]
+            nodes = graph_nodes(torch, lambda: gee_spmm_gathered(*a, **kw))
+            if nodes != {"kernel": 1}:
+                raise AssertionError(f"gee_spmm_gathered on [{a[0].shape[0]}"
+                                     f", {a[0].shape[1]}] enqueued {nodes}, "
+                                     f"not one kernel")
+            per_launch[a[0].shape[1]] = sum(nodes.values())
+        t["kernels_per_launch"] = per_launch
+        timing[g] = t
+        del calls, planes, z
+    out["timing"] = timing
+    say(f"phase 6b gathered launch ({card}): {out['edge_cases']} edge "
+        f"cases and {out['checks']} bucket launches "
+        f"(8 settings fused, 2 staged) equal to the plane launch bit for bit "
+        f"with the rows outside untouched, padded buckets equal, vs plain "
+        f"{fmt_err(out['errs'])}; shapes " + "; ".join(
+            f"{g} {v['shapes']} split {v['split']}"
+            for g, v in out["graphs"].items())
+        + "; default fit, ms: " + "; ".join(
+            f"{g} gathered {t['ms']:.4f} over {t['launches_per_fit']} "
+              f"launches (bound {t['bound_ms']:.4f}; plane kernel "
+              f"{t['plane_kernel_ms']:.4f}, plane passes + kernel + scatter "
+              f"{t['plane_passes_ms']:.4f}, plain {t['plain_ms']:.4f}); per "
+              f"bucket, L2 flushed, gathered/plane " + " ".join(
+                  f"[{b['R']}, {b['D']}] {b['ms']:.4f}/{b['plane_ms']:.4f}"
+                  for b in t["buckets"])
+            for g, t in timing.items()))
+    out["errs"] = worst(out["errs"])
+    return out
 
 
 def csr_operands(torch, edges, labels, k):
@@ -2448,14 +2719,15 @@ def sharded_phase(torch, card, all_kernels, graphs, prepared, tmp,
 # ---------------------------------------------------------------------------
 
 def autotune_phase(torch, card, kernels, rkernels, captured, rcaptured,
-                   fit, graphs) -> dict:
+                   fit, graphs, gcaptured) -> dict:
     """Phase 13.  (a) Every geometry phases 4-9 resolved through
     ``autotune.REGISTRY`` (its memo holds each key a launch looked up) is
     its policy's, with nothing recorded.  (b) Measured search, turned on
     through the API: the contraction kernels on cl-100k-1d8-l5's narrowest
-    and widest buckets (the planes phases 4-5 launched) and
-    ``scored_topk_gathered`` on a flush of phase 8, each candidate timed by
-    CUDA events, the fastest recorded.  (c) A fused and a staged fit of the
+    and widest buckets (the planes phases 4-5 stand for, and the fused
+    driver's gathered launches, ``gcaptured``) and ``scored_topk_gathered``
+    on a flush of phase 8, each candidate timed by CUDA events, the fastest
+    recorded.  (c) A fused and a staged fit of the
     graph and that flush, with the recorded geometry, against the plain
     versions.  (d) The recorded entries saved and loaded into a fresh
     registry.  The recorded entries are cleared at the end.  Prints one
@@ -2471,14 +2743,15 @@ def autotune_phase(torch, card, kernels, rkernels, captured, rcaptured,
     g = "cl-100k-1d8-l5"
     out = {}
     # (a) with nothing recorded, every resolution is the policy's
-    port = (gs.KERNEL_NAME, gs.FUSED_KERNEL_NAME, ts.PAIRWISE_KERNEL,
-            ts.GATHERED_KERNEL)
+    port = (gs.KERNEL_NAME, gs.FUSED_KERNEL_NAME, gs.GATHERED_KERNEL_NAME,
+            ts.PAIRWISE_KERNEL, ts.GATHERED_KERNEL)
     if any(REGISTRY.recorded(k) for k in port):
         raise AssertionError(f"entries recorded before phase 13: "
                              f"{REGISTRY.recorded()}")
     sms = ts._sm_count(torch.device(DEVICE))
     policy = {gs.KERNEL_NAME: gs._geometry_policy,
               gs.FUSED_KERNEL_NAME: gs._geometry_policy,
+              gs.GATHERED_KERNEL_NAME: gs._geometry_policy,
               ts.PAIRWISE_KERNEL: lambda key: (ts._pairwise_policy(*key),),
               ts.GATHERED_KERNEL: lambda key: (ts._gathered_policy(*key),)}
     resolved = {k: REGISTRY.resolved(k) for k in port}
@@ -2537,6 +2810,21 @@ def autotune_phase(torch, card, kernels, rkernels, captured, rcaptured,
                 "candidates": len(timings),
                 "default_ms": ms_of(timings, default),
                 "winner_ms": ms_of(timings, winner)})
+    calls = gcaptured[g]["gee_spmm_fused"]
+    widths = [a[0].shape[1] for a, _ in calls]
+    for pick in sorted({widths.index(min(widths)), widths.index(max(widths))}):
+        a, kw = calls[pick]
+        kernel = gs.GATHERED_KERNEL_NAME
+        default = gs.resolve_geometry(kernel, a[0].shape[1], a[6],
+                                      gs._vec(a[0], a[1]))
+        winner, timings = gs.measured_gathered_search(
+            *a, **kw, eps=EPS_NORM, repeats=5, persist=False)
+        searches.append({
+            "kernel": kernel, "shape": list(a[0].shape),
+            "default": list(default), "winner": list(winner),
+            "candidates": len(timings),
+            "default_ms": ms_of(timings, default),
+            "winner_ms": ms_of(timings, winner)})
     a, kw = rcaptured[(g, "l2")]["scored_topk_gathered"][0]
     default = (ts.resolve_chunks(ts.GATHERED_KERNEL, a[0].device,
                                  a[0].shape[0], a[1].shape[1]),)
@@ -4871,7 +5159,8 @@ def main() -> int:
     from repro_torch.kernels import row_norm as row_norm_mod
     from repro_torch.kernels.gee_fused import ENV_FUSED, gee_spmm_fused
     from repro_torch.kernels.gee_spmm import gee_spmm
-    from repro_torch.kernels.ref import (gee_spmm_fused_ref, gee_spmm_ref,
+    from repro_torch.kernels.ref import (gee_spmm_fused_ref,
+                                         gee_spmm_gathered_ref, gee_spmm_ref,
                                          row_norm_ref)
     from repro_torch.kernels.row_norm import row_norm
     from repro_torch.kernels import ref as ref_mod
@@ -4992,21 +5281,39 @@ def main() -> int:
 
     # Capture the kernels' exact inputs on the main path (default options,
     # both graphs, fused and staged).  These launches come before the
-    # counts are reset, so they do not count as main-path launches.
-    captured = {}
+    # counts are reset, so they do not count as main-path launches.  The
+    # drivers make gathered launches (``gcaptured``, by the plane kernel
+    # each driver's launch stands for); each plane kernel is held and timed
+    # on the planes those launches stand for (``planes_of``).
+    captured, gcaptured = {}, {}
     for g in graphs:
-        with Recorder(gee_fused, "gee_spmm_fused") as rec_f:
+        with Recorder(gee_fused, "gee_spmm_gathered") as rec_f:
             fit(g, default, True)
-        with Recorder(ops, "gee_spmm") as rec_s, \
+        with Recorder(ops, "gee_spmm_gathered") as rec_s, \
                 Recorder(row_norm_mod, "row_norm") as rec_n:
             fit(g, default, False)
-        captured[g] = {"gee_spmm_fused": rec_f.calls,
-                       "gee_spmm": rec_s.calls, "row_norm": rec_n.calls}
+        captured[g] = {
+            "gee_spmm_fused": [planes_of(torch, a, kw, True)
+                               for a, kw in rec_f.calls],
+            "gee_spmm": [planes_of(torch, a, kw, False)
+                         for a, kw in rec_s.calls],
+            "row_norm": rec_n.calls}
+        gcaptured[g] = {"gee_spmm_fused": rec_f.calls,
+                        "gee_spmm": rec_s.calls}
     torch.cuda.synchronize()
 
     # -- phases 4-5: the main path, counted -----------------------------------
+    # The bucketed drivers launch the contraction kernels through the
+    # gathered source: those launches count to the plane kernel their
+    # driver replaces (``gathered``), and the registry's counters must read
+    # them all as gathered.
     for fn in kernels.values():
         fn.launches = 0
+    gathered = {"gee_spmm_fused": 0, "gee_spmm": 0}
+    from repro_torch.obs import metrics as obs_metrics
+    reg = obs_metrics.get_registry()
+    routes = (reg.counter(gee_spmm_mod.GATHERED_COUNTER).value,
+              reg.counter(gee_spmm_mod.PLANES_COUNTER).value)
     results = {}
     t0 = time.perf_counter()
     for g, settings in (("sbm-10k", ALL_OPTION_SETTINGS),
@@ -5017,7 +5324,10 @@ def main() -> int:
         for opts in settings:
             ref = gee_sparse_torch(edges, labels_dev, k, opts)
             for fused in (True, False):
+                before = gee_fused.gee_spmm_gathered.launches
                 z = fit(g, opts, fused)
+                gathered["gee_spmm_fused" if fused else "gee_spmm"] += \
+                    gee_fused.gee_spmm_gathered.launches - before
                 if z.shape != (edges.num_nodes, k) \
                         or not bool(torch.isfinite(z).all()):
                     raise AssertionError(f"{g} {opts.tag()}: bad output")
@@ -5026,7 +5336,14 @@ def main() -> int:
         results[g] = errs_g
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    routes = (reg.counter(gee_spmm_mod.GATHERED_COUNTER).value - routes[0],
+              reg.counter(gee_spmm_mod.PLANES_COUNTER).value - routes[1])
+    if routes != (sum(gathered.values()), 0) or not all(gathered.values()):
+        raise AssertionError(f"main path: {routes} launches gathered and "
+                             f"on planes, {gathered} gathered launches "
+                             f"counted")
+    launches = {name: fn.launches + gathered.get(name, 0)
+                for name, fn in kernels.items()}
 
     # the default setting against the host SciPy reference (SBM)
     src, dst, w = sbm.edges.valid_arrays()
@@ -5041,11 +5358,15 @@ def main() -> int:
         f"host gee_scipy {fmt_err(scipy_errs)}")
     say(f"phase 5 main path cl-100k-1d8-l5: default (fused, staged) vs "
         f"sparse_torch {fmt_err(results['cl-100k-1d8-l5'].values())} "
-        f"(phases 4-5 took {main_s:.1f} s; launches {launches})")
+        f"(phases 4-5 took {main_s:.1f} s; launches {launches}, of which "
+        f"gathered {gathered}; registry counters, gathered and planes: "
+        f"{routes})")
     report.update(main_path_errs=results, scipy_err=scipy_err,
-                  launches=launches)
+                  launches=launches, launches_gathered=gathered)
 
     # -- phase 3b: kernel vs plain on the main path's real buckets -----------
+    # (the contraction kernels on the planes, and through the gathered
+    # source on the drivers' own operands, each into a Z of its own)
     plain = {"gee_spmm": gee_spmm_ref, "row_norm": row_norm_ref,
              "gee_spmm_fused": gee_spmm_fused_ref}
     n_real = 0
@@ -5055,6 +5376,14 @@ def main() -> int:
                 errs[name].append(max_err(torch, kernels[name](*args, **kwargs),
                                           plain[name](*args, **kwargs)))
                 n_real += 1
+        for name, calls in gcaptured[g].items():
+            for a, kw in calls:
+                got = gee_fused.gee_spmm_gathered(
+                    *a[:5], torch.zeros_like(a[5]), a[6], **kw)
+                want = gee_spmm_gathered_ref(
+                    *a[:5], torch.zeros_like(a[5]), a[6], **kw)
+                errs[name].append(max_err(torch, got, want))
+                n_real += 1
     torch.cuda.synchronize()
     say(f"phase 3b kernel vs plain, {n_real} real launches of the main path: "
         + ", ".join(f"{k} {fmt_err(errs[k])}" for k in kernels))
@@ -5062,33 +5391,34 @@ def main() -> int:
     # -- phase 6: timing ------------------------------------------------------
     timing = {}
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=DEVICE)
+    # A contraction kernel's entry times what the main path launches: its
+    # driver's gathered launches of one default fit (``gcaptured``), against
+    # their bound and their plain version; the plane kernel on the planes
+    # they stand for is ``plane_ms``, against ``plane_bound_ms``.
     for g in graphs:
         tg = {}
         for name, calls in captured[g].items():
-            nbytes = ops_ = 0
-            for args, _ in calls:
-                if name == "row_norm":
-                    nbytes += 8 * args[0].numel()
-                    ops_ += 3 * args[0].numel()
-                else:
-                    r, d = args[0].shape
-                    k = args[4] if name == "gee_spmm_fused" else args[2]
-                    nbytes += 8 * r * d + 4 * r * k
-                    ops_ += int((args[0] >= 0).sum())
-                    if name == "gee_spmm_fused":
-                        nbytes += 8 * args[2].numel()
-            t_kernel = gpu_ms(torch, lambda: [kernels[name](*a, **kw)
-                                              for a, kw in calls])
-            per_launch = [gpu_ms(torch, lambda: kernels[name](*a, **kw),
-                                 reps=10) for a, kw in calls]
+            if name == "row_norm":
+                run, fn, plain_fn = calls, kernels[name], plain[name]
+                nbytes = sum(8 * a[0].numel() for a, _ in calls)
+                ops_ = sum(3 * a[0].numel() for a, _ in calls)
+            else:
+                run, fn = gcaptured[g][name], gee_fused.gee_spmm_gathered
+                plain_fn = gee_spmm_gathered_ref
+                # + the fit's [N] vertex records, read once
+                nbytes = sum(contraction_bytes(a) for a, _ in run) \
+                    + 8 * run[0][0][3].shape[0]
+                ops_ = sum(int((a[0] >= 0).sum()) for a, _ in calls)
+            t_kernel = gpu_ms(torch, lambda: [fn(*a, **kw) for a, kw in run])
+            per_launch = [gpu_ms(torch, lambda: fn(*a, **kw), reps=10)
+                          for a, kw in run]
             buckets = None
             if name != "row_norm":
                 # the staged fit packs A + I (the default's diag-aug)
                 bell = prepared[g].bucketed_ell(name == "gee_spmm")
-                buckets = bucket_table(torch, kernels[name], calls, bell,
-                                       flush)
-            t_plain = gpu_ms(torch, lambda: [plain[name](*a, **kw)
-                                             for a, kw in calls], reps=10)
+                buckets = bucket_table(torch, fn, run, bell, flush)
+            t_plain = gpu_ms(torch, lambda: [plain_fn(*a, **kw)
+                                             for a, kw in run], reps=10)
             lib_ms = None
             if name == "row_norm":
                 import torch.nn.functional as F
@@ -5104,13 +5434,21 @@ def main() -> int:
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops_ / FP32_OPS_PER_S * 1e3
             tg[name] = {
-                "launches_per_fit": len(calls), "ms": t_kernel,
-                "ms_per_launch": t_kernel / len(calls), "plain_ms": t_plain,
+                "launches_per_fit": len(run), "ms": t_kernel,
+                "ms_per_launch": t_kernel / len(run), "plain_ms": t_plain,
                 "library_ms": lib_ms, "bytes": nbytes,
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "shapes": [list(a[0].shape) for a, _ in calls],
+                "shapes": [list(a[0].shape) for a, _ in run],
                 "per_launch_ms": per_launch, "buckets": buckets}
+            if name != "row_norm":
+                plane_bytes = sum(contraction_bytes(a) for a, _ in calls)
+                tg[name].update(
+                    plane_ms=gpu_ms(torch, lambda: [kernels[name](*a, **kw)
+                                                    for a, kw in calls]),
+                    plane_bytes=plane_bytes,
+                    plane_bound_ms=max(plane_bytes / HBM_BYTES_PER_S * 1e3,
+                                       ops_ms))
             if name == "gee_spmm":
                 tg[name]["library"] = "torch.sparse.mm(A_csr, W), cuSPARSE"
                 tg[name]["library_err"] = library_err
@@ -5149,6 +5487,9 @@ def main() -> int:
                         f"{tg[n]['launches_per_fit']} launches "
                         f"(bound {tg[n]['bound_ms']:.4f}, plain "
                         f"{tg[n]['plain_ms']:.4f}"
+                        + (f", plane kernel {tg[n]['plane_ms']:.4f} (bound "
+                           f"{tg[n]['plane_bound_ms']:.4f})"
+                           if "plane_ms" in tg[n] else "")
                         + (f", {LIBRARY[n]} {tg[n]['library_ms']:.4f}"
                            if tg[n]["library_ms"] is not None else "") + ")"
                         for n in kernels)
@@ -5168,6 +5509,9 @@ def main() -> int:
               f"host packing {pack:.1f} ms, peak memory of a cold fit "
               f"{peak / 2**20:.1f} MiB")
     report["timing"] = timing
+
+    # -- phase 6b: the gathered launch against the plane launch ---------------
+    report["gathered"] = gathered_phase(torch, card, graphs, prepared, flush)
 
     # -- phase 8: the retrieval path ------------------------------------------
     from repro_torch.launch.gee_search import recall_at_k
@@ -5538,9 +5882,10 @@ def main() -> int:
 
     # -- phase 13: the autotune registry ---------------------------------------
     report["autotune"] = autotune_phase(torch, card, kernels, rkernels,
-                                        captured, rcaptured, fit, graphs)
+                                        captured, rcaptured, fit, graphs,
+                                        gcaptured)
 
-    del captured, rcaptured, prepared
+    del captured, gcaptured, rcaptured, prepared
     # -- phase 19 (b), started here: the dry-run beside phases 14-18 ----------
     dry_tmp = tempfile.TemporaryDirectory()
     dry = start_dryrun(dry_tmp.name)
@@ -5557,7 +5902,12 @@ def main() -> int:
     # Slice 1's kernels: ms per fit of cl-100k-1d8-l5.  The retrieval
     # kernels: ms per launch at cl-100k-1d8-l5's l2 shapes (pairwise_scores
     # at the index build, the others at a flush).  ``launches`` is the
-    # count of the kernel's own main path (phases 4-5 or 8);
+    # count of the kernel's own main path (phases 4-5 or 8), where the
+    # contraction kernels' include ``launches_gathered``, their launches
+    # through the gathered source by the driver that replaced them; their
+    # ``ms``, bound, plain time and errors are of those gathered launches
+    # (phases 3b, 6), and ``plane_ms`` / ``plane_bound_ms`` the kernel's on
+    # the planes they stand for;
     # ``launches_streaming`` is phase 10's and ``launches_serving`` phase
     # 11's serving path, each counted apart; ``launches_serving_checks``
     # is phase 11's own checks (brute force, full probe, Z read back);
@@ -5577,6 +5927,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": REPLACES[name],
             "launches": n,
+            "launches_gathered": gathered.get(name, 0),
             "launches_streaming": stream_launches[name],
             "launches_serving": serving_launches[name],
             "launches_serving_checks": serving_checks[name],
@@ -5584,7 +5935,9 @@ def main() -> int:
             "max_abs_err": worst(errs[name])[0],
             "max_rel_err": worst(errs[name])[1], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "plane_ms": t.get("plane_ms"),
+            "plane_bound_ms": t.get("plane_bound_ms")})
     report["kernels"] = line["kernels"]
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -47,6 +47,14 @@ _SIGNATURES = {
                                ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int64, _P], ctypes.c_int),
+    # cols, vals, row_ids, verts, winv, out, ws, tickets, R, D, N, K,
+    # laplacian, diag, correlation, eps, vec, lanes, span, stream
+    "gee_gathered_launch": ([_P, _P, _P, _P, _P, _P, _P, _P,
+                             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                             ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_int64, _P],
+                            ctypes.c_int),
     # z, out, N, K, eps, stream
     "row_norm_launch": ([_P, _P, ctypes.c_int64, ctypes.c_int,
                          ctypes.c_float, _P], ctypes.c_int),

@@ -10,6 +10,17 @@
 //   row_norm        replaces src/repro/kernels/row_norm.py::_row_norm_kernel
 //                   row L2 normalization with the EPS_NORM clamp
 //
+// and a second source for the contraction's kernels, gee_gathered: the same
+// launch (either epilogue) from a degree bucket's packing as it is (cols,
+// vals) and the fit's per-vertex records (label and d^-1/2 in 8 bytes) and
+// 1 / n_k, each slot's label, class weight and Laplacian scale gathered in
+// registers, each finished row written in place to its row of the fit's
+// [N, K] output.  It is what ell_planes, laplacian_vals and the diag addend
+// would write into the planes, with the same bits (struct Gathered), so a
+// fit's buckets need no [R, D] pass of their own.  It reads the 8 B a slot
+// the planes cost, plus one 8-byte gather a slot from the [N] records, which
+// sit in L2; at K = 5 on cl-100k-1d8-l5 those gathers, not HBM, bound it.
+//
 // Bound on the H100 (3.35 TB/s): bytes.  The contraction reads 8 B per ELL
 // slot (int32 label, f32 contribution) once and writes 4*R*K B (the fused
 // kernel also reads 8 B a row of rowlab/dadd); a slot costs K compare-selects,
@@ -151,6 +162,17 @@ struct Load<4> {
     y = __ldg(reinterpret_cast<const int4*>(yr) + e);
     c = __ldg(reinterpret_cast<const float4*>(cr) + e);
   }
+  // slot u of the load (u a constant once unrolled), for the gathered source
+  __device__ __forceinline__ int ys(int u) const {
+    return u == 0 ? y.x : u == 1 ? y.y : u == 2 ? y.z : y.w;
+  }
+  __device__ __forceinline__ float cs(int u) const {
+    return u == 0 ? c.x : u == 1 ? c.y : u == 2 ? c.z : c.w;
+  }
+  __device__ __forceinline__ void set(int u, int yv, float cv) {
+    (u == 0 ? y.x : u == 1 ? y.y : u == 2 ? y.z : y.w) = yv;
+    (u == 0 ? c.x : u == 1 ? c.y : u == 2 ? c.z : c.w) = cv;
+  }
   template <int KT>
   __device__ __forceinline__ void add(float (&acc)[KT], int k0) const {
     add_slot<KT>(acc, y.x - k0, c.x);
@@ -174,25 +196,203 @@ struct Load<1> {
   }
 };
 
+// ---------------------------------------------------------------------------
+// Where a launch's slots come from.  Each source has a row view, RowOf, that a
+// kernel opens once a row: the row's two slot streams, the row of `out` it
+// writes, its diag term (class y, -1 for none, and addend a; loaded only where
+// `lead`), and two per-load steps, `gather` (loads that depend on the streams)
+// and `finish` (turns a load into (class, contribution) slots: -1 and 0 for a
+// slot that does not count).
+// ---------------------------------------------------------------------------
+
+// The planes as ell_planes writes them: slot (ylab, contrib), the row's diag
+// term (rowlab, dadd; none when rowlab is null); row r of the launch is row r
+// of out.
+struct Planes {
+  static constexpr bool kScalarLoads = true;  // built for D % 4 != 0 too
+  const int* ylab;
+  const float* contrib;
+  const int* rowlab;
+  const float* dadd;
+  __host__ __device__ bool diag_on() const { return rowlab != nullptr; }
+  bool aligned16() const;
+};
+
+// A bucket's packing as it is (slot (cols, vals)) and the fit's per-vertex
+// records: verts [N], each vertex's label and the bits of its d^-1/2 in one
+// 8-byte record, so a slot's gather is one load; winv [K] (1 / n_k).  Row r
+// of the launch is row row_ids[r] of out ([N, K]); a row whose id lies
+// outside [0, N) (a padding row's dump row N) writes nothing.  Per slot, with
+// c = clamp(col, 0, N - 1): lv = (v * dinv[row]) * dinv[c] with the
+// Laplacian, else v, and y = label[c]; the slot counts iff lv != 0 and
+// 0 <= y < K, adding lv * winv[y] to class y.  With `diag`, the row's term is
+// y_r = label[row] and a = (dinv[row] * dinv[row]) * winv[y_r] (winv[y_r]
+// without the Laplacian).  These are laplacian_vals, ell_planes and the fused
+// driver's diag addend, product by product in the same order; every product
+// is __fmul_rn, so none is contracted into an add, and the slots are the
+// planes' bits.  Built for 16-byte loads only (D % 4 == 0, as every width of
+// the bucket ladder is); the wrapper takes the planes for any other width.
+struct Gathered {
+  static constexpr bool kScalarLoads = false;
+  const int* cols;
+  const float* vals;
+  const int* row_ids;
+  const int2* verts;
+  const float* winv;
+  int64_t N;
+  int laplacian;
+  int diag;
+  __host__ __device__ bool diag_on() const { return diag != 0; }
+  bool aligned16() const;
+};
+
+template <int KC, class Src>
+struct RowOf;
+
+template <int KC>
+struct RowOf<KC, Planes> {
+  const int* yr;
+  const float* cr;
+  int64_t orow;
+  bool live;    // the row's slots are read
+  bool writes;  // the row is written to out
+  int y;
+  float a;
+  template <int U>
+  struct Extra {};
+  // in_grid: the row exists (a segment past the last row reads nothing)
+  __device__ __forceinline__ RowOf(const Planes& s, int64_t r, bool in_grid, int64_t D, int,
+                                   bool lead) {
+    live = writes = in_grid;
+    orow = r;
+    const int64_t base = live ? r * D : 0;
+    yr = s.ylab + base;
+    cr = s.contrib + base;
+    const bool diag = live && lead && s.rowlab != nullptr;
+    y = diag ? __ldg(s.rowlab + r) : -1;
+    a = diag ? __ldg(s.dadd + r) : 0.f;
+  }
+  template <int U>
+  __device__ __forceinline__ void get(Load<U>& ld, int64_t e) const {
+    ld.get(yr, cr, e);
+  }
+  template <int U>
+  __device__ __forceinline__ void gather(const Load<U>&, Extra<U>&) const {}
+  template <int U>
+  __device__ __forceinline__ void finish(Load<U>&, const Extra<U>&) const {}
+};
+
+template <int KC>
+struct RowOf<KC, Gathered> {
+  // K <= kRegClasses: winv in registers, read by a select a slot; class
+  // tiles read it through L1 (the row is read again a tile anyway)
+  static constexpr int kW = KC <= kRegClasses ? KC : 1;
+  const int* cr;
+  const float* vr;
+  const int2* verts;
+  const float* winv;
+  int64_t last;  // N - 1
+  int K;
+  bool lap;
+  float drow;
+  float w[kW];
+  int64_t orow;
+  bool live;
+  bool writes;
+  int y;
+  float a;
+  template <int U>
+  struct Extra {
+    int2 v[U];  // the slots' vertex records
+  };
+  // The slot streams do not wait on row_ids: a row past the ids' range
+  // reads its own (padding) slots and only its writes are skipped.
+  __device__ __forceinline__ RowOf(const Gathered& s, int64_t r, bool in_grid, int64_t D, int K_,
+                                   bool lead)
+      : verts(s.verts), winv(s.winv), last(s.N - 1), K(K_), lap(s.laplacian != 0) {
+    orow = in_grid ? __ldg(s.row_ids + r) : -1;
+    live = in_grid;
+    const int64_t base = live ? r * D : 0;
+    cr = s.cols + base;
+    vr = s.vals + base;
+    writes = live && orow >= 0 && orow < s.N;
+    if constexpr (KC <= kRegClasses) {
+#pragma unroll
+      for (int t = 0; t < KC; ++t) w[t] = __ldg(winv + t);
+    }
+    const bool diag = lead && s.diag;
+    const int2 me = writes && (lap || diag) ? __ldg(verts + orow) : make_int2(-1, 0);
+    drow = __int_as_float(me.y);
+    const int yl = diag ? me.x : -1;
+    const bool ok = yl >= 0 && yl < K;
+    y = ok ? yl : -1;
+    const float wy = ok ? weight(yl) : 0.f;
+    a = lap ? __fmul_rn(__fmul_rn(drow, drow), wy) : wy;
+  }
+  // winv[c] for 0 <= c < K
+  __device__ __forceinline__ float weight(int c) const {
+    if constexpr (KC <= kRegClasses) {
+      float v = 0.f;
+#pragma unroll
+      for (int t = 0; t < KC; ++t) v = c == t ? w[t] : v;
+      return v;
+    } else {
+      return __ldg(winv + c);
+    }
+  }
+  template <int U>
+  __device__ __forceinline__ void get(Load<U>& ld, int64_t e) const {
+    ld.get(cr, vr, e);  // the load's y holds cols, its c vals
+  }
+  template <int U>
+  __device__ __forceinline__ void gather(const Load<U>& ld, Extra<U>& ex) const {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      int64_t c = ld.ys(u);
+      c = c < 0 ? 0 : (c > last ? last : c);
+      ex.v[u] = __ldg(verts + c);
+    }
+  }
+  template <int U>
+  __device__ __forceinline__ void finish(Load<U>& ld, const Extra<U>& ex) const {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float v = ld.cs(u);
+      const float lv = lap ? __fmul_rn(__fmul_rn(v, drow), __int_as_float(ex.v[u].y)) : v;
+      const int yv = ex.v[u].x;
+      const bool ok = lv != 0.f && yv >= 0 && yv < K;
+      ld.set(u, ok ? yv : -1, ok ? __fmul_rn(lv, weight(ok ? yv : 0)) : 0.f);
+    }
+  }
+};
+
 // Lane-private sums of the class tile [k0, k0 + KT) over the loads first,
 // first + stride, ... < end of one row (load e holds slots [e*U, e*U + U)).
-// kVec loads of each plane are issued before the first is used.
-template <int KT, int U>
-__device__ __forceinline__ void lane_sums(const int* __restrict__ yr,
-                                          const float* __restrict__ cr, int64_t first,
-                                          int64_t end, int stride, int k0, float (&acc)[KT]) {
+// kVec loads of each stream are issued before the first is used; a gathered
+// row then issues all their gathers before it finishes the first slot.
+template <int KT, int U, class Row>
+__device__ __forceinline__ void lane_sums(const Row& rw, int64_t first, int64_t end, int stride,
+                                          int k0, float (&acc)[KT]) {
 #pragma unroll
   for (int t = 0; t < KT; ++t) acc[t] = 0.f;
   const int64_t step = static_cast<int64_t>(kVec) * stride;
   for (int64_t e0 = first; e0 < end; e0 += step) {
     Load<U> ld[kVec];
+    typename Row::template Extra<U> ex[kVec];
 #pragma unroll
     for (int v = 0; v < kVec; ++v) {
-      if (e0 + static_cast<int64_t>(v) * stride < end) ld[v].get(yr, cr, e0 + v * stride);
+      if (e0 + static_cast<int64_t>(v) * stride < end) rw.get(ld[v], e0 + v * stride);
     }
 #pragma unroll
     for (int v = 0; v < kVec; ++v) {
-      if (e0 + static_cast<int64_t>(v) * stride < end) ld[v].template add<KT>(acc, k0);
+      if (e0 + static_cast<int64_t>(v) * stride < end) rw.gather(ld[v], ex[v]);
+    }
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) {
+      if (e0 + static_cast<int64_t>(v) * stride < end) {
+        rw.finish(ld[v], ex[v]);
+        ld[v].template add<KT>(acc, k0);
+      }
     }
   }
 }
@@ -243,57 +443,49 @@ __device__ __forceinline__ void epilogue_warp(float* row, float* orow, int K, in
 // of two <= 32; L = 32 for class tiles), so kBlockThreads / L rows a block.
 // KC <= 8: K == KC, the row in registers; KC = 16 or 32: class tiles of KC,
 // one warp a row, the row in shared memory when the epilogue runs.
-template <int KC, int U>
+template <int KC, int U, class Src>
 __global__ void __launch_bounds__(kBlockThreads)
-gee_seg_kernel(const int* __restrict__ ylab, const float* __restrict__ contrib,
-               const int* __restrict__ rowlab, const float* __restrict__ dadd,
-               float* __restrict__ out, int64_t R, int64_t D, int K, int L, int correlation,
-               float eps) {
+gee_seg_kernel(const Src src, float* __restrict__ out, int64_t R, int64_t D, int K, int L,
+               int correlation, float eps) {
   extern __shared__ float rows[];  // class tiles with an epilogue: [kBlockWarps][K]
   const int lane = threadIdx.x % kWarp;
   const int j = lane & (L - 1);
   const int64_t r = static_cast<int64_t>(blockIdx.x) * (kBlockThreads / L) + threadIdx.x / L;
-  const bool live = r < R;
-  const int64_t loads = live ? D / U : 0;  // dead segments still join the shuffles
-  const int64_t base = live ? r * D : 0;
-  const int* yr = ylab + base;
-  const float* cr = contrib + base;
-  const bool epi = rowlab != nullptr || correlation;
-  // the row's diag term, loaded ahead of the planes
-  const bool diag = live && rowlab != nullptr;
-  const int y = diag ? __ldg(rowlab + r) : -1;
-  const float a = diag ? __ldg(dadd + r) : 0.f;
+  // the row's diag term, loaded ahead of the slots
+  const RowOf<KC, Src> rw(src, r, r < R, D, K, true);
+  const int64_t loads = rw.live ? D / U : 0;  // dead segments still join the shuffles
+  const bool epi = src.diag_on() || correlation;
   if constexpr (KC <= kRegClasses) {
     float z[KC];
-    lane_sums<KC, U>(yr, cr, j, loads, L, 0, z);
+    lane_sums<KC, U>(rw, j, loads, L, 0, z);
     for (int o = L / 2; o > 0; o >>= 1) {
 #pragma unroll
       for (int t = 0; t < KC; ++t) z[t] += __shfl_xor_sync(kFullMask, z[t], o, L);
     }
-    if (!live) return;  // after the last shuffle
-    if (epi) epilogue_regs<KC>(z, y, a, correlation, eps);
-    float* orow = out + r * K;
+    if (!rw.writes) return;  // after the last shuffle
+    if (epi) epilogue_regs<KC>(z, rw.y, rw.a, correlation, eps);
+    float* orow = out + rw.orow * K;
 #pragma unroll
     for (int t = 0; t < KC; ++t) {
       if ((t & (L - 1)) == j) orow[t] = z[t];
     }
   } else {
     float* row = rows + (threadIdx.x / kWarp) * K;
-    float* dst = epi ? row : out + r * K;
+    float* dst = epi ? row : out + rw.orow * K;
     for (int k0 = 0; k0 < K; k0 += KC) {
       float z[KC];
-      lane_sums<KC, U>(yr, cr, lane, loads, kWarp, k0, z);
+      lane_sums<KC, U>(rw, lane, loads, kWarp, k0, z);
       float mine = 0.f;
 #pragma unroll
       for (int t = 0; t < KC; ++t) {
         const float s = warp_sum(z[t]);
         if (t == lane) mine = s;
       }
-      if (live && lane < KC && k0 + lane < K) dst[k0 + lane] = mine;
+      if (rw.writes && lane < KC && k0 + lane < K) dst[k0 + lane] = mine;
     }
-    if (!live || !epi) return;  // whole warps: L == 32
+    if (!rw.writes || !epi) return;  // whole warps: L == 32
     __syncwarp();
-    epilogue_warp(row, out + r * K, K, y, a, correlation, eps, lane);
+    epilogue_warp(row, out + rw.orow * K, K, rw.y, rw.a, correlation, eps, lane);
   }
 }
 
@@ -301,12 +493,11 @@ gee_seg_kernel(const int* __restrict__ ylab, const float* __restrict__ contrib,
 // (64, 128 or 256) takes a span of S slots of one row; block b is span
 // b % nspans of row b / nspans.  With nspans > 1, each span's sums go to
 // ws[b][K] and the row's last block to arrive finishes the row.
-template <int KC, int U>
+template <int KC, int U, class Src>
 __global__ void __launch_bounds__(kBlockThreads)
-gee_span_kernel(const int* __restrict__ ylab, const float* __restrict__ contrib,
-                const int* __restrict__ rowlab, const float* __restrict__ dadd,
-                float* __restrict__ out, float* __restrict__ ws, int* __restrict__ tickets,
-                int64_t D, int K, int64_t S, int nspans, int correlation, float eps) {
+gee_span_kernel(const Src src, float* __restrict__ out, float* __restrict__ ws,
+                int* __restrict__ tickets, int64_t D, int K, int64_t S, int nspans,
+                int correlation, float eps) {
   __shared__ float part[kBlockWarps][KC];
   __shared__ int last;
   extern __shared__ float row[];  // [K] when the epilogue runs
@@ -315,21 +506,18 @@ gee_span_kernel(const int* __restrict__ ylab, const float* __restrict__ contrib,
   const int warp = tid / kWarp, lane = tid % kWarp;
   const int64_t b = blockIdx.x;
   const int64_t r = b / nspans;
+  // the row's diag term, loaded ahead of the slots (used by thread 0)
+  const RowOf<KC, Src> rw(src, r, true, D, K, tid == 0);
+  if (!rw.writes) return;  // every block of a skipped row leaves: no ticket
   const int64_t span_loads = S / U;
   const int64_t first = (b - r * nspans) * span_loads;
   const int64_t end = first + span_loads < D / U ? first + span_loads : D / U;
-  const int* yr = ylab + r * D;
-  const float* cr = contrib + r * D;
-  const bool epi = rowlab != nullptr || correlation;
+  const bool epi = src.diag_on() || correlation;
   const bool split = nspans > 1;
-  // the row's diag term, loaded ahead of the planes (used by thread 0)
-  const bool diag = tid == 0 && rowlab != nullptr;
-  const int y = diag ? __ldg(rowlab + r) : -1;
-  const float a = diag ? __ldg(dadd + r) : 0.f;
-  float* dst = split ? ws + b * K : (epi ? row : out + r * K);
+  float* dst = split ? ws + b * K : (epi ? row : out + rw.orow * K);
   for (int k0 = 0; k0 < K; k0 += KC) {
     float z[KC];
-    lane_sums<KC, U>(yr, cr, first + tid, end, T, k0, z);
+    lane_sums<KC, U>(rw, first + tid, end, T, k0, z);
 #pragma unroll
     for (int t = 0; t < KC; ++t) z[t] = warp_sum(z[t]);
     if (lane == 0) {
@@ -354,7 +542,7 @@ gee_span_kernel(const int* __restrict__ ylab, const float* __restrict__ contrib,
     if (!last) return;
     __threadfence();
     const float* p = ws + r * nspans * K;
-    float* to = epi ? row : out + r * K;
+    float* to = epi ? row : out + rw.orow * K;
     for (int k = tid; k < K; k += T) {
       // kCombineLoads partials in flight at once, added in span order
       float v = 0.f;
@@ -374,7 +562,9 @@ gee_span_kernel(const int* __restrict__ ylab, const float* __restrict__ contrib,
     if (tid == 0) tickets[r] = 0;  // ready for the next launch on this stream
     __syncthreads();
   }
-  if (epi && warp == 0) epilogue_warp(row, out + r * K, K, y, a, correlation, eps, lane);
+  if (epi && warp == 0) {
+    epilogue_warp(row, out + rw.orow * K, K, rw.y, rw.a, correlation, eps, lane);
+  }
 }
 
 // K > 32: one warp a row.
@@ -452,29 +642,33 @@ void with_tile(int K, F&& f) {
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// The contraction with an optional epilogue (rowlab/dadd, correlation), at the
-// geometry the wrapper chose: lanes <= 32 takes gee_seg_kernel with `lanes`
-// lanes a row; lanes in {64, 128, 256} takes gee_span_kernel with blocks of
-// `lanes` threads over spans of `span` slots.  vec: 16-byte loads.
-int contraction_launch(const void* ylab, const void* contrib, const void* rowlab,
-                       const void* dadd, void* out, void* ws, void* tickets, int64_t R,
-                       int64_t D, int K, int correlation, float eps, int vec, int lanes,
-                       int64_t span, void* stream) {
+bool Planes::aligned16() const {
+  return ::aligned16(ylab) && ::aligned16(contrib);
+}
+
+bool Gathered::aligned16() const {
+  return ::aligned16(cols) && ::aligned16(vals);
+}
+
+// The contraction with an optional epilogue (the source's diag term,
+// correlation), at the geometry the wrapper chose: lanes <= 32 takes
+// gee_seg_kernel with `lanes` lanes a row; lanes in {64, 128, 256} takes
+// gee_span_kernel with blocks of `lanes` threads over spans of `span` slots.
+// vec: 16-byte loads of the source's two slot streams, which a source
+// without kScalarLoads requires (its kernels are built for them alone).
+template <class Src>
+int contraction_launch(const Src& src, void* out, void* ws, void* tickets, int64_t R, int64_t D,
+                       int K, int correlation, float eps, int vec, int lanes, int64_t span,
+                       void* stream) {
   if (R < 0 || D < 0 || K < 1) return cudaErrorInvalidValue;
-  if ((rowlab == nullptr) != (dadd == nullptr)) return cudaErrorInvalidValue;
-  const bool epi = rowlab != nullptr || correlation;
+  const bool epi = src.diag_on() || correlation;
   if (epi && K > kMaxClasses) return cudaErrorInvalidValue;
   if (lanes < 1 || lanes > kBlockThreads || (lanes & (lanes - 1)) != 0) {
     return cudaErrorInvalidValue;
   }
-  if (vec && (D % 4 != 0 || !aligned16(ylab) || !aligned16(contrib))) {
-    return cudaErrorInvalidValue;
-  }
+  if (vec && (D % 4 != 0 || !src.aligned16())) return cudaErrorInvalidValue;
+  if (!vec && !Src::kScalarLoads) return cudaErrorInvalidValue;
   if (R == 0) return cudaSuccess;
-  const int* y = static_cast<const int*>(ylab);
-  const float* c = static_cast<const float*>(contrib);
-  const int* rl = static_cast<const int*>(rowlab);
-  const float* da = static_cast<const float*>(dadd);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (lanes <= kWarp) {
@@ -485,11 +679,11 @@ int contraction_launch(const void* ylab, const void* contrib, const void* rowlab
     with_tile(K, [&](auto kc) {
       constexpr int KC = decltype(kc)::value;
       if (vec) {
-        gee_seg_kernel<KC, 4><<<blocks, kBlockThreads, smem, s>>>(y, c, rl, da, o, R, D, K,
-                                                                  lanes, correlation, eps);
-      } else {
-        gee_seg_kernel<KC, 1><<<blocks, kBlockThreads, smem, s>>>(y, c, rl, da, o, R, D, K,
-                                                                  lanes, correlation, eps);
+        gee_seg_kernel<KC, 4, Src><<<blocks, kBlockThreads, smem, s>>>(src, o, R, D, K, lanes,
+                                                                       correlation, eps);
+      } else if constexpr (Src::kScalarLoads) {
+        gee_seg_kernel<KC, 1, Src><<<blocks, kBlockThreads, smem, s>>>(src, o, R, D, K, lanes,
+                                                                       correlation, eps);
       }
     });
     return static_cast<int>(cudaGetLastError());
@@ -506,11 +700,11 @@ int contraction_launch(const void* ylab, const void* contrib, const void* rowlab
   with_tile(K, [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
     if (vec) {
-      gee_span_kernel<KC, 4><<<blocks, lanes, smem, s>>>(y, c, rl, da, o, w, tk, D, K, span,
-                                                         ns, correlation, eps);
-    } else {
-      gee_span_kernel<KC, 1><<<blocks, lanes, smem, s>>>(y, c, rl, da, o, w, tk, D, K, span,
-                                                         ns, correlation, eps);
+      gee_span_kernel<KC, 4, Src><<<blocks, lanes, smem, s>>>(src, o, w, tk, D, K, span, ns,
+                                                              correlation, eps);
+    } else if constexpr (Src::kScalarLoads) {
+      gee_span_kernel<KC, 1, Src><<<blocks, lanes, smem, s>>>(src, o, w, tk, D, K, span, ns,
+                                                              correlation, eps);
     }
   });
   return static_cast<int>(cudaGetLastError());
@@ -536,8 +730,9 @@ const char* gee_kernels_error_string(int code) {
 int gee_spmm_launch(const void* ylab, const void* contrib, void* out, void* ws, void* tickets,
                     int64_t R, int64_t D, int K, int vec, int lanes, int64_t span,
                     void* stream) {
-  return contraction_launch(ylab, contrib, nullptr, nullptr, out, ws, tickets, R, D, K, 0,
-                            0.f, vec, lanes, span, stream);
+  const Planes src{static_cast<const int*>(ylab), static_cast<const float*>(contrib), nullptr,
+                   nullptr};
+  return contraction_launch(src, out, ws, tickets, R, D, K, 0, 0.f, vec, lanes, span, stream);
 }
 
 int gee_spmm_fused_launch(const void* ylab, const void* contrib, const void* rowlab,
@@ -545,8 +740,33 @@ int gee_spmm_fused_launch(const void* ylab, const void* contrib, const void* row
                           int64_t D, int K, int correlation, float eps, int vec, int lanes,
                           int64_t span, void* stream) {
   if (K > kMaxClasses) return cudaErrorInvalidValue;
-  return contraction_launch(ylab, contrib, rowlab, dadd, out, ws, tickets, R, D, K,
-                            correlation, eps, vec, lanes, span, stream);
+  if ((rowlab == nullptr) != (dadd == nullptr)) return cudaErrorInvalidValue;
+  const Planes src{static_cast<const int*>(ylab), static_cast<const float*>(contrib),
+                   static_cast<const int*>(rowlab), static_cast<const float*>(dadd)};
+  return contraction_launch(src, out, ws, tickets, R, D, K, correlation, eps, vec, lanes, span,
+                            stream);
+}
+
+// The gathered source (see Gathered): cols/vals [R, D], row_ids [R], verts
+// [N] 8-byte records (label, d^-1/2 bits; 8-byte aligned), winv [K], out
+// [N, K] (rows not named by row_ids are left as they are); laplacian: scale
+// by d^-1/2; diag: the diag term; ws and tickets as above; vec must be 1.
+int gee_gathered_launch(const void* cols, const void* vals, const void* row_ids,
+                        const void* verts, const void* winv, void* out, void* ws, void* tickets,
+                        int64_t R, int64_t D, int64_t N, int K, int laplacian, int diag,
+                        int correlation, float eps, int vec, int lanes, int64_t span,
+                        void* stream) {
+  if (R > 0 && (N < 1 || cols == nullptr || vals == nullptr || row_ids == nullptr ||
+                verts == nullptr || winv == nullptr || out == nullptr ||
+                reinterpret_cast<uintptr_t>(verts) % 8 != 0)) {
+    return cudaErrorInvalidValue;
+  }
+  const Gathered src{static_cast<const int*>(cols),   static_cast<const float*>(vals),
+                     static_cast<const int*>(row_ids), static_cast<const int2*>(verts),
+                     static_cast<const float*>(winv), N,
+                     laplacian ? 1 : 0,                diag ? 1 : 0};
+  return contraction_launch(src, out, ws, tickets, R, D, K, correlation, eps, vec, lanes, span,
+                            stream);
 }
 
 int row_norm_launch(const void* z, void* out, int64_t N, int K, float eps, void* stream) {

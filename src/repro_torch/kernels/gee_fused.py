@@ -16,8 +16,13 @@ in registers or shared memory from the contraction until it is normalized
 The drivers pack the *base* graph: diagonal augmentation folds in as
 degrees + 1 and the in-kernel addend ``dinv^2 * winv[y]``, so no self-loop
 edge is ever packed.  Degree-0 rows sit in no bucket, so
-``gee_fused_from_bucketed`` applies the shared epilogue to them as a
-residual fixup.
+``gee_fused_from_bucketed`` starts Z as the shared epilogue of zero rows (a
+residual fixup) and each bucket's launch overwrites its rows in place.
+
+``gee_spmm_gathered`` is the contraction with the gathered source: a
+bucket's packing as it is and the fit's per-vertex records in, each slot's
+label, class weight and Laplacian scale gathered in the kernel, each row
+written in place into Z, so the bucketed drivers run no [R, D] prep pass.
 
 ``REPRO_GEE_FUSED=0/1`` overrides the plan layer's choice
 (``repro_torch.core.plan.select_fused``); unset defers to it.
@@ -33,11 +38,15 @@ from repro_torch.core.epilogue import (EPS_NORM, apply_epilogue,
                                        inv_sqrt_degrees)
 from repro_torch.core.gee import GEEOptions, class_weight_inv
 from repro_torch.graph.containers import ELL
-from repro_torch.graph.ell import (BucketedELL, bucketed_degrees,
-                                   ell_planes, laplacian_vals)
+from repro_torch.graph.ell import BucketedELL, bucketed_degrees, ell_planes
 from repro_torch.kernels.build import check_tensor
-from repro_torch.kernels.gee_spmm import launch_contraction
-from repro_torch.kernels.ref import gee_spmm_fused_ref
+from repro_torch.kernels.gee_spmm import (GATHERED_COUNTER, PLANES_COUNTER,
+                                          _vec, launch_contraction,
+                                          launch_gathered)
+from repro_torch.kernels.ref import (diag_addend, gathered_planes,
+                                     gee_spmm_fused_ref,
+                                     gee_spmm_gathered_ref)
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
 ENV_FUSED = "REPRO_GEE_FUSED"
@@ -87,6 +96,8 @@ def gee_spmm_fused(ylab: torch.Tensor, contrib: torch.Tensor,
     if not 1 <= num_classes <= MAX_CLASSES:
         raise ValueError(f"num_classes must be in [1, {MAX_CLASSES}], got "
                          f"{num_classes}")
+    if ylab.shape[0]:
+        obs_metrics.get_registry().counter(PLANES_COUNTER).inc()
     if ylab.device.type == "cpu":
         return gee_spmm_fused_ref(ylab, contrib, rowlab, dadd, num_classes,
                                   correlation=correlation, eps=EPS_NORM)
@@ -100,21 +111,96 @@ def gee_spmm_fused(ylab: torch.Tensor, contrib: torch.Tensor,
 gee_spmm_fused.launches = 0
 
 
+def vertex_records(labels: torch.Tensor,
+                   dinv: torch.Tensor | None = None) -> torch.Tensor:
+    """[N, 2] int32: each vertex's label and the bits of its d^-1/2 (0
+    without the Laplacian), one 8-byte record a vertex, so a gathered slot
+    reads both with one load.  Made once a fit."""
+    bits = torch.zeros_like(labels) if dinv is None \
+        else dinv.view(torch.int32)
+    return torch.stack((labels, bits), dim=1)
+
+
+def gee_spmm_gathered(cols: torch.Tensor, vals: torch.Tensor,
+                      row_ids: torch.Tensor, verts: torch.Tensor,
+                      winv: torch.Tensor, out: torch.Tensor,
+                      num_classes: int, *, laplacian: bool = False,
+                      diag_aug: bool = False,
+                      correlation: bool = False) -> torch.Tensor:
+    """One degree bucket's contraction from its packing as it is, finished
+    in place into the fit's Z.
+
+    ``cols`` [R, D] int32 and ``vals`` [R, D] f32 are the bucket's packing,
+    ``row_ids`` [R] int32 its rows' vertex ids (a row whose id lies outside
+    [0, N), as a padding row's dump row N does, is skipped); ``verts`` [N,
+    2] int32 (``vertex_records``: label, -1 = unknown, and the bits of
+    d^-1/2) and ``winv`` [K] f32 (``class_weight_inv``) are the fit's.
+    Row r -- its slots scaled by d^-1/2 of both ends when ``laplacian``,
+    with its diag term when ``diag_aug`` and its row norm when
+    ``correlation`` -- is written to ``out[row_ids[r]]``, ``out`` [N, K]
+    f32; every other row of ``out`` is left as it is.  The bits are those
+    of ``gee_spmm_fused`` on the planes ``laplacian_vals``, ``ell_planes``
+    and ``diag_addend`` would make.  Returns ``out``.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    on the current stream (or raises), or, where ``cols`` and ``vals`` do
+    not take 16-byte loads (a width not a multiple of 4), the plane kernel
+    on the planes it stands for (``gathered_planes``), counted as a plane
+    launch and not in ``.launches``.
+    """
+    check_tensor(cols, "cols", torch.int32, 2)
+    check_tensor(vals, "vals", torch.float32, 2, like=cols)
+    check_tensor(row_ids, "row_ids", torch.int32, 1, like=cols)
+    check_tensor(verts, "verts", torch.int32, 2)
+    check_tensor(winv, "winv", torch.float32, 1)
+    check_tensor(out, "out", torch.float32, 2)
+    if any(t.device != cols.device for t in (verts, winv, out)):
+        raise ValueError(f"verts, winv and out must be on {cols.device}, "
+                         f"like cols")
+    n = verts.shape[0]
+    if verts.shape[1] != 2 or tuple(out.shape) != (n, num_classes) \
+            or winv.shape[0] != num_classes:
+        raise ValueError(f"verts {tuple(verts.shape)}, out "
+                         f"{tuple(out.shape)} and winv {tuple(winv.shape)} "
+                         f"must be [N, 2], [N, K] and [K] for K="
+                         f"{num_classes}")
+    most = MAX_CLASSES if diag_aug or correlation else None
+    if num_classes < 1 or (most is not None and num_classes > most):
+        raise ValueError(f"num_classes must be in [1, {most}] with an "
+                         f"epilogue, >= 1 without, got {num_classes}")
+    flags = {"laplacian": laplacian, "diag_aug": diag_aug,
+             "correlation": correlation}
+    if cols.shape[0] == 0:
+        return out
+    registry = obs_metrics.get_registry()
+    if cols.device.type == "cpu":
+        registry.counter(GATHERED_COUNTER).inc()
+        return gee_spmm_gathered_ref(cols, vals, row_ids, verts, winv, out,
+                                     num_classes, **flags, eps=EPS_NORM)
+    if not _vec(cols, vals):
+        # The kernels gather with 16-byte loads only; a width off them (a
+        # width ladder the plan never packs) takes the planes it stands for.
+        registry.counter(PLANES_COUNTER).inc()
+        rows, ylab, contrib, rowlab, dadd = gathered_planes(
+            cols, vals, row_ids, verts, winv, laplacian=laplacian,
+            diag_aug=diag_aug)
+        out[rows] = launch_contraction(
+            ylab, contrib, rowlab if diag_aug or correlation else None, dadd,
+            num_classes, correlation=correlation, eps=EPS_NORM)
+        return out
+    registry.counter(GATHERED_COUNTER).inc()
+    launch_gathered(cols, vals, row_ids, verts, winv, out, num_classes,
+                    **flags, eps=EPS_NORM)
+    gee_spmm_gathered.launches += 1
+    return out
+
+
+gee_spmm_gathered.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # full-pipeline drivers (what the plan layer executes)
 # ---------------------------------------------------------------------------
-
-def _diag_addend(labels: torch.Tensor, winv: torch.Tensor,
-                 dinv: torch.Tensor, diag_aug: bool):
-    """Per-row (rowlab, dadd) epilogue operands; disabled -> empty."""
-    if not diag_aug:
-        return (torch.zeros(0, dtype=torch.int32, device=labels.device),
-                torch.zeros(0, dtype=torch.float32, device=labels.device))
-    valid = labels >= 0
-    ys = torch.where(valid, labels, torch.zeros_like(labels)).long()
-    dadd = torch.where(valid, dinv * dinv * winv[ys], torch.zeros_like(dinv))
-    return labels.to(torch.int32).contiguous(), dadd.to(torch.float32)
-
 
 def gee_fused_from_ell(ell: ELL, labels: torch.Tensor, num_classes: int,
                        opts: GEEOptions = GEEOptions()) -> torch.Tensor:
@@ -138,7 +224,7 @@ def gee_fused_from_ell(ell: ELL, labels: torch.Tensor, num_classes: int,
         dinv = torch.ones(n_rows, dtype=torch.float32, device=dev)
 
     ylab, contrib = ell_planes(cols, vals, labels, winv)
-    rowlab, dadd = _diag_addend(labels_rows, winv, dinv, opts.diag_aug)
+    rowlab, dadd = diag_addend(labels_rows, winv, dinv, opts.diag_aug)
     z = gee_spmm_fused(ylab, contrib, rowlab, dadd, num_classes,
                        correlation=opts.correlation)
     return z[:n]
@@ -149,15 +235,16 @@ def gee_fused_from_bucketed(bell: BucketedELL, labels: torch.Tensor,
                             opts: GEEOptions = GEEOptions()) -> torch.Tensor:
     """Fused GEE from a degree-bucketed packing of the *base* graph.
 
-    One fused launch per bucket, on its real rows only (the bucket's
-    padding rows are its trailing ones): rows are disjoint across buckets,
-    so each row's whole contraction and epilogue complete inside one
-    launch, and results scatter back by assignment (never addition).
-    Degree-0 rows live in no bucket; the residual fixup applies the shared
-    epilogue to them.  Spans: ``prep.class_weights``, ``prep.degrees``;
-    per bucket (tag ``bucket``) ``prep.laplacian_vals``, ``prep.planes``,
-    ``prep.diag_addend`` and ``kernel.gee_fused`` (the launch and the
-    scatter back); ``prep.residual_fixup``.
+    Z starts as the residual fixup: degree-0 rows live in no bucket and
+    still owe the diag-aug term and the row norm, so Z is the shared
+    epilogue applied to zero rows (zeros when neither option is on).  Then
+    one gathered launch per bucket, on its real rows only (the bucket's
+    padding rows are its trailing ones), overwrites that bucket's rows of Z
+    in place: rows are disjoint across buckets, so each row's whole
+    contraction and epilogue complete inside one launch.  Spans:
+    ``prep.class_weights``, ``prep.degrees``, ``prep.residual_fixup``
+    (with diag-aug or correlation), and per bucket (tag ``bucket``)
+    ``kernel.gee_fused`` (the launch and its in-place write).
     """
     n = bell.num_nodes
     dev = bell.buckets[0].cols.device if bell.buckets else (
@@ -168,46 +255,31 @@ def gee_fused_from_bucketed(bell: BucketedELL, labels: torch.Tensor,
         winv = class_weight_inv(labels, num_classes)
 
     with span("prep.degrees"):
+        dinv = None
         if opts.laplacian:
             deg = bucketed_degrees(bell, dev)
             if opts.diag_aug:
                 deg = deg + 1.0                # the un-packed self loop
             dinv = inv_sqrt_degrees(deg)
-        else:
-            dinv = torch.ones(n, dtype=torch.float32, device=dev)
 
     z = torch.zeros((n, num_classes), dtype=torch.float32, device=dev)
-    covered = torch.zeros(n, dtype=torch.bool, device=dev)
-    for i, b in enumerate(bell.buckets):
-        b = b.real_rows()
-        if opts.laplacian:
-            with span("prep.laplacian_vals", bucket=i):
-                vals = laplacian_vals(b, dinv)
-        else:
-            vals = b.vals
-        with span("prep.planes", bucket=i):
-            ylab, contrib = ell_planes(b.cols, vals, labels, winv)
-        with span("prep.diag_addend", bucket=i):
-            rows = b.row_ids.long()
-            rowlab, dadd = _diag_addend(labels[rows], winv, dinv[rows],
-                                        opts.diag_aug)
-        with span("kernel.gee_fused", bucket=i):
-            z[rows] = gee_spmm_fused(ylab, contrib, rowlab, dadd,
-                                     num_classes,
-                                     correlation=opts.correlation)
-            covered[rows] = True
-
-    # Residual fixup: degree-0 rows (no bucket) still owe the diag-aug
-    # term and the row norm -- the identical shared-epilogue arithmetic.
     if opts.diag_aug or opts.correlation:
         with span("prep.residual_fixup"):
-            z_res = apply_epilogue(
-                torch.zeros((n, num_classes), dtype=torch.float32,
-                            device=dev),
-                labels, winv, dinv, opts=opts, impl="torch")
-            z = torch.where(covered[:, None], z, z_res)
+            dz = dinv if dinv is not None else torch.ones(
+                n, dtype=torch.float32, device=dev)
+            z = apply_epilogue(z, labels, winv, dz, opts=opts,
+                               impl="torch").contiguous()
+    verts = vertex_records(labels, dinv)
+    for i, b in enumerate(bell.buckets):
+        b = b.real_rows()
+        with span("kernel.gee_fused", bucket=i):
+            gee_spmm_gathered(b.cols, b.vals, b.row_ids, verts, winv, z,
+                              num_classes, laplacian=opts.laplacian,
+                              diag_aug=opts.diag_aug,
+                              correlation=opts.correlation)
     return z
 
 
 __all__ = ["ENV_FUSED", "MAX_CLASSES", "fused_override", "gee_spmm_fused",
-           "gee_fused_from_ell", "gee_fused_from_bucketed"]
+           "vertex_records", "gee_spmm_gathered", "gee_fused_from_ell",
+           "gee_fused_from_bucketed"]

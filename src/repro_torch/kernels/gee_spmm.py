@@ -15,11 +15,20 @@ last one to arrive adds in span order (a workspace and a per-row ticket).
 Loads are 16 B (``int4``/``float4``) where the width and the bases allow; K
 <= 8 is exact.  See the source for the sum order.
 
+The same kernels take a second source, ``launch_gathered``: a degree
+bucket's packing as it is (``cols``, ``vals``) and the fit's per-vertex
+records (label and d^-1/2 in 8 bytes), each slot's label, class weight and
+Laplacian scale gathered in the kernel, each row written in place to its row
+of the fit's [N, K] output (``csrc/gee_kernels.cu``, ``Gathered``).  Its
+wrapper is ``repro_torch.kernels.gee_fused.gee_spmm_gathered``.
+
 A launch resolves its geometry through ``autotune.REGISTRY`` (kernels
-``cuda.gee_spmm`` and ``cuda.gee_spmm_fused``, key ``(D, K, vec)``), whose
-fallback is ``launch_geometry``: with nothing recorded it is exactly that
-policy.  ``measured_geometry_search`` times the knobs' other geometries on a
-launch's planes and records the fastest.
+``cuda.gee_spmm``, ``cuda.gee_spmm_fused`` and ``cuda.gee_spmm_gathered``,
+key ``(D, K, vec)``), whose fallback is ``launch_geometry``: with nothing
+recorded it is exactly that policy.  ``measured_geometry_search`` times the
+knobs' other geometries on a launch's planes, ``measured_gathered_search`` on
+a gathered launch's operands, and records the fastest under its own kernel's
+name, so a geometry measured for one source is never taken by the other.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from repro_torch.kernels.autotune import REGISTRY, measure_enabled
 from repro_torch.kernels.build import (check_launch, check_tensor,
                                       load_library, stream_of)
 from repro_torch.kernels.ref import gee_spmm_ref
+from repro_torch.obs import metrics as obs_metrics
 
 # Loads of each plane a lane takes (a load is 16 B, 4 slots, where the planes
 # allow): a row of D slots gets the power of two of lanes nearest above
@@ -74,6 +84,14 @@ def launch_geometry(d: int, num_classes: int, vec: bool,
 
 KERNEL_NAME = "cuda.gee_spmm"
 FUSED_KERNEL_NAME = "cuda.gee_spmm_fused"
+GATHERED_KERNEL_NAME = "cuda.gee_spmm_gathered"
+
+# Registry counters of contractions by source, one a non-empty call of a
+# wrapper (a kernel launch on a CUDA tensor, the plain version on a CPU one):
+# ``gee_spmm`` and ``gee_spmm_fused`` count planes, ``gee_spmm_gathered``
+# gathered, so a run reads the share of its launches that gathered.
+PLANES_COUNTER = "gee.launches.planes"
+GATHERED_COUNTER = "gee.launches.gathered"
 
 
 def _geometry_policy(key: tuple[int, ...]) -> tuple[int, int, int]:
@@ -83,7 +101,7 @@ def _geometry_policy(key: tuple[int, ...]) -> tuple[int, int, int]:
     return launch_geometry(d, num_classes, bool(vec))
 
 
-for _kernel in (KERNEL_NAME, FUSED_KERNEL_NAME):
+for _kernel in (KERNEL_NAME, FUSED_KERNEL_NAME, GATHERED_KERNEL_NAME):
     REGISTRY.register(_kernel, fallback=_geometry_policy)
 
 
@@ -112,8 +130,9 @@ def check_geometry(geometry, d: int, num_classes: int) -> tuple[int, ...]:
 
 def resolve_geometry(kernel: str, d: int, num_classes: int,
                      vec: bool) -> tuple[int, ...]:
-    """``(lanes, span, spans)`` of a launch of ``kernel`` (``KERNEL_NAME``
-    or ``FUSED_KERNEL_NAME``) through ``REGISTRY``."""
+    """``(lanes, span, spans)`` of a launch of ``kernel`` (``KERNEL_NAME``,
+    ``FUSED_KERNEL_NAME`` or ``GATHERED_KERNEL_NAME``) through
+    ``REGISTRY``."""
     return check_geometry(
         REGISTRY.lookup(kernel, geometry_key(d, num_classes, vec)), d,
         num_classes)
@@ -138,30 +157,50 @@ def geometry_candidates(kernel: str, d: int, num_classes: int,
     return out
 
 
+def _search(kernel: str, d: int, num_classes: int, vec: bool, launch,
+            repeats: int, persist: bool):
+    """Time ``launch(geometry)`` at each of ``kernel``'s candidate
+    geometries by CUDA events and record the fastest under the key of
+    ``(d, num_classes, vec)``.  Returns ``(winner, {geometry: seconds})``;
+    a key already recorded returns at once with no timings."""
+    return REGISTRY.measured_search(
+        kernel, geometry_key(d, num_classes, vec),
+        geometry_candidates(kernel, d, num_classes, vec),
+        lambda g: launch(check_geometry(g, d, num_classes)),
+        repeats=repeats, persist=persist)
+
+
 def measured_geometry_search(ylab: torch.Tensor, contrib: torch.Tensor,
                              num_classes: int,
                              rowlab: torch.Tensor | None = None,
                              dadd: torch.Tensor | None = None, *,
                              correlation: bool = False, eps: float = 0.0,
                              repeats: int = 3, persist: bool = True):
-    """Time the candidate geometries on these CUDA planes (``gee_spmm``
-    when ``rowlab`` is None, else ``gee_spmm_fused``) by CUDA events and
-    record the fastest under the planes' key.  Returns ``(winner,
-    {geometry: seconds})``; a key already recorded returns at once with no
-    timings."""
-    r, d = ylab.shape
-    vec = _vec(ylab, contrib)
-    kernel = KERNEL_NAME if rowlab is None else FUSED_KERNEL_NAME
+    """``_search`` on these CUDA planes: ``gee_spmm`` when ``rowlab`` is
+    None, else ``gee_spmm_fused``."""
+    return _search(
+        KERNEL_NAME if rowlab is None else FUSED_KERNEL_NAME, ylab.shape[1],
+        num_classes, _vec(ylab, contrib),
+        lambda g: launch_contraction(ylab, contrib, rowlab, dadd,
+                                     num_classes, correlation=correlation,
+                                     eps=eps, geometry=g), repeats, persist)
 
-    def run(g):
-        return launch_contraction(ylab, contrib, rowlab, dadd, num_classes,
-                                  correlation=correlation, eps=eps,
-                                  geometry=check_geometry(g, d, num_classes))
 
-    return REGISTRY.measured_search(
-        kernel, geometry_key(d, num_classes, vec),
-        geometry_candidates(kernel, d, num_classes, vec), run,
-        repeats=repeats, persist=persist)
+def measured_gathered_search(cols: torch.Tensor, vals: torch.Tensor,
+                             row_ids: torch.Tensor, verts: torch.Tensor,
+                             winv: torch.Tensor, out: torch.Tensor,
+                             num_classes: int, *, laplacian: bool = False,
+                             diag_aug: bool = False,
+                             correlation: bool = False, eps: float = 0.0,
+                             repeats: int = 3, persist: bool = True):
+    """``_search`` for a gathered launch on these CUDA operands (each run
+    rewrites the same rows of ``out``), under ``GATHERED_KERNEL_NAME``."""
+    return _search(
+        GATHERED_KERNEL_NAME, cols.shape[1], num_classes, _vec(cols, vals),
+        lambda g: launch_gathered(cols, vals, row_ids, verts, winv, out,
+                                  num_classes, laplacian=laplacian,
+                                  diag_aug=diag_aug, correlation=correlation,
+                                  eps=eps, geometry=g), repeats, persist)
 
 
 def _vec(ylab: torch.Tensor, contrib: torch.Tensor) -> bool:
@@ -211,13 +250,8 @@ def launch_contraction(ylab: torch.Tensor, contrib: torch.Tensor,
         geometry = resolve_geometry(kernel, d, num_classes, vec)
     lanes, span, spans = geometry
     stream = stream_of(ylab)
-    ws = tickets = None
-    if spans > 1:           # the spans' partial sums, and the row tickets
-        ws = torch.empty(r * spans * num_classes, dtype=torch.float32,
-                         device=dev)
-        tickets = _tickets(dev, stream, r)
-    ptrs = (None if ws is None else ws.data_ptr(),
-            None if tickets is None else tickets.data_ptr())
+    ws, tickets = _split_buffers(dev, stream, r, spans, num_classes)
+    ptrs = (_ptr(ws), _ptr(tickets))
     lib = load_library()
     if rowlab is None:
         rc = lib.gee_spmm_launch(ylab.data_ptr(), contrib.data_ptr(),
@@ -235,6 +269,64 @@ def launch_contraction(ylab: torch.Tensor, contrib: torch.Tensor,
     return out
 
 
+def _split_buffers(device: torch.device, stream: int, rows: int, spans: int,
+                   num_classes: int) -> tuple:
+    """The spans' partial sums and the row tickets of a launch whose rows
+    are split (``spans`` > 1), else (None, None)."""
+    if spans <= 1:
+        return None, None
+    return (torch.empty(rows * spans * num_classes, dtype=torch.float32,
+                        device=device), _tickets(device, stream, rows))
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def launch_gathered(cols: torch.Tensor, vals: torch.Tensor,
+                    row_ids: torch.Tensor, verts: torch.Tensor,
+                    winv: torch.Tensor, out: torch.Tensor, num_classes: int,
+                    *, laplacian: bool = False, diag_aug: bool = False,
+                    correlation: bool = False, eps: float = 0.0,
+                    geometry: tuple[int, ...] | None = None) -> torch.Tensor:
+    """Launch the contraction kernels with the gathered source on checked
+    CUDA operands: row r of ``cols``/``vals`` [R, D], scaled by the
+    Laplacian when ``laplacian``, finished (diag term with ``diag_aug``, row
+    norm with ``correlation``) into row ``row_ids[r]`` of ``out`` [N, K], in
+    place; ``verts`` [N, 2] int32 holds each vertex's label and the bits of
+    its d^-1/2.  The gathered source takes 16-byte loads only (``_vec``:
+    D % 4 == 0, both bases aligned); other operands raise.  ``geometry``
+    overrides the registry's.  Counts nothing; the wrapper does."""
+    r, d = cols.shape
+    if r == 0:
+        return out
+    if not _vec(cols, vals):
+        raise ValueError(f"the gathered launch takes 16-byte loads: width "
+                         f"{d} must be a multiple of 4 and cols, vals "
+                         f"16-byte aligned")
+    vec = True
+    if geometry is None:
+        if measure_enabled() and geometry_key(d, num_classes, vec) \
+                not in REGISTRY.recorded(GATHERED_KERNEL_NAME):
+            measured_gathered_search(cols, vals, row_ids, verts, winv, out,
+                                     num_classes, laplacian=laplacian,
+                                     diag_aug=diag_aug,
+                                     correlation=correlation, eps=eps)
+        geometry = resolve_geometry(GATHERED_KERNEL_NAME, d, num_classes, vec)
+    lanes, span, spans = geometry
+    stream = stream_of(cols)
+    ws, tickets = _split_buffers(cols.device, stream, r, spans, num_classes)
+    lib = load_library()
+    rc = lib.gee_gathered_launch(
+        cols.data_ptr(), vals.data_ptr(), row_ids.data_ptr(),
+        verts.data_ptr(), winv.data_ptr(), out.data_ptr(), _ptr(ws),
+        _ptr(tickets), r, d, verts.shape[0], num_classes,
+        int(bool(laplacian)), int(bool(diag_aug)), int(bool(correlation)),
+        eps, int(vec), lanes, span, stream)
+    check_launch(lib, rc, "gee_spmm_gathered")
+    return out
+
+
 def gee_spmm(ylab: torch.Tensor, contrib: torch.Tensor,
              num_classes: int) -> torch.Tensor:
     """ELL GEE contraction: ylab [R, D] int32 (-1 pad), contrib [R, D] f32
@@ -247,6 +339,8 @@ def gee_spmm(ylab: torch.Tensor, contrib: torch.Tensor,
     check_tensor(contrib, "contrib", torch.float32, 2, like=ylab)
     if num_classes < 1:
         raise ValueError(f"num_classes must be >= 1, got {num_classes}")
+    if ylab.shape[0]:
+        obs_metrics.get_registry().counter(PLANES_COUNTER).inc()
     if ylab.device.type == "cpu":
         return gee_spmm_ref(ylab, contrib, num_classes)
     out = launch_contraction(ylab, contrib, None, None, num_classes)
@@ -258,6 +352,9 @@ def gee_spmm(ylab: torch.Tensor, contrib: torch.Tensor,
 gee_spmm.launches = 0
 
 __all__ = ["LANE_LOADS", "SEG_LOADS", "SPAN", "KERNEL_NAME",
-           "FUSED_KERNEL_NAME", "launch_geometry", "geometry_key",
-           "check_geometry", "resolve_geometry", "geometry_candidates",
-           "measured_geometry_search", "launch_contraction", "gee_spmm"]
+           "FUSED_KERNEL_NAME", "GATHERED_KERNEL_NAME", "PLANES_COUNTER",
+           "GATHERED_COUNTER", "launch_geometry",
+           "geometry_key", "check_geometry", "resolve_geometry",
+           "geometry_candidates", "measured_geometry_search",
+           "measured_gathered_search", "launch_contraction",
+           "launch_gathered", "gee_spmm"]

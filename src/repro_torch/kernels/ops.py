@@ -4,8 +4,8 @@
 
 Two packings feed the contraction: one flat [N_pad, D_max] plane
 (``gee_cuda_from_ell``) or the degree buckets (``gee_cuda_from_bucketed``,
-one launch per bucket on its real rows, scattered back by assignment).
-Correlation then runs the ``row_norm`` kernel.
+one gathered launch per bucket on its real rows, each writing its rows of Z
+in place).  Correlation then runs the ``row_norm`` kernel.
 
 Diagonal augmentation is never silently dropped: the ``*_from_*`` drivers
 take a packing of the graph as it is and raise ``ValueError`` when
@@ -24,7 +24,8 @@ from repro_torch.core.gee import GEEOptions, class_weight_inv
 from repro_torch.graph.containers import ELL, EdgeList, add_self_loops
 from repro_torch.graph.ell import (BucketedELL, bucketed_degrees,
                                    edges_to_bucketed_ell, edges_to_ell,
-                                   ell_planes, laplacian_vals)
+                                   ell_planes)
+from repro_torch.kernels.gee_fused import gee_spmm_gathered, vertex_records
 from repro_torch.kernels.gee_spmm import gee_spmm
 from repro_torch.obs import trace as obs_trace
 
@@ -61,13 +62,13 @@ def gee_cuda_from_ell(ell: ELL, labels: torch.Tensor, num_classes: int,
 def gee_cuda_from_bucketed(bell: BucketedELL, labels: torch.Tensor,
                            num_classes: int,
                            opts: GEEOptions = GEEOptions()) -> torch.Tensor:
-    """GEE from a degree-bucketed ELL tiling: one ``gee_spmm`` launch per
-    bucket on its real rows (the bucket's padding rows are its trailing
-    ones); rows are disjoint across buckets, so outputs scatter back by
-    assignment.  Spans: ``prep.class_weights``, ``prep.degrees`` (with
-    the Laplacian); per bucket (tag ``bucket``) ``prep.laplacian_vals``
-    (with the Laplacian), ``prep.planes`` and ``kernel.gee_spmm`` (the
-    launch and the scatter back)."""
+    """GEE from a degree-bucketed ELL tiling: one gathered launch
+    (``gee_spmm_gathered``, no epilogue) per bucket on its real rows (the
+    bucket's padding rows are its trailing ones), each writing its rows of
+    Z in place; rows are disjoint across buckets, and degree-0 rows stay
+    zero.  Spans: ``prep.class_weights``, ``prep.degrees`` (with the
+    Laplacian); per bucket (tag ``bucket``) ``kernel.gee_spmm`` (the
+    launch and its in-place write)."""
     _reject_diag_aug(opts)
     n = bell.num_nodes
     dev = bell.buckets[0].cols.device if bell.buckets else (
@@ -83,16 +84,12 @@ def gee_cuda_from_bucketed(bell: BucketedELL, labels: torch.Tensor,
             dinv = inv_sqrt_degrees(bucketed_degrees(bell, dev))
 
     z = torch.zeros((n, num_classes), dtype=torch.float32, device=dev)
+    verts = vertex_records(labels, dinv)
     for i, b in enumerate(bell.buckets):
         b = b.real_rows()
-        vals = b.vals
-        if dinv is not None:
-            with span("prep.laplacian_vals", bucket=i):
-                vals = laplacian_vals(b, dinv)
-        with span("prep.planes", bucket=i):
-            ylab, contrib = ell_planes(b.cols, vals, labels, winv)
         with span("kernel.gee_spmm", bucket=i):
-            z[b.row_ids.long()] = gee_spmm(ylab, contrib, num_classes)
+            gee_spmm_gathered(b.cols, b.vals, b.row_ids, verts, winv, z,
+                              num_classes, laplacian=opts.laplacian)
     if opts.correlation:
         z = row_l2_normalize(z.contiguous(), impl="cuda")
     return z

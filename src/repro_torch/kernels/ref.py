@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.graph.ell import ELLBucket, ell_planes, laplacian_vals
+
 
 def gee_spmm_ref(ylab: torch.Tensor, contrib: torch.Tensor,
                  num_classes: int) -> torch.Tensor:
@@ -45,6 +47,66 @@ def gee_spmm_fused_ref(ylab: torch.Tensor, contrib: torch.Tensor,
     if correlation:
         z = row_norm_ref(z, eps)
     return z
+
+
+def diag_addend(labels: torch.Tensor, winv: torch.Tensor,
+                dinv: torch.Tensor, diag_aug: bool):
+    """Per-row ``(rowlab, dadd)`` fused-epilogue operands of rows with
+    these ``labels`` and ``dinv`` (ones without the Laplacian): ``dadd =
+    dinv * dinv * winv[y]``, 0 where the label is -1; disabled -> empty."""
+    if not diag_aug:
+        return (torch.zeros(0, dtype=torch.int32, device=labels.device),
+                torch.zeros(0, dtype=torch.float32, device=labels.device))
+    valid = labels >= 0
+    ys = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    dadd = torch.where(valid, dinv * dinv * winv[ys], torch.zeros_like(dinv))
+    return labels.to(torch.int32).contiguous(), dadd.to(torch.float32)
+
+
+def gathered_planes(cols: torch.Tensor, vals: torch.Tensor,
+                    row_ids: torch.Tensor, verts: torch.Tensor,
+                    winv: torch.Tensor, *, laplacian: bool = False,
+                    diag_aug: bool = False) -> tuple:
+    """The planes a gathered launch stands for: ``(rows, ylab, contrib,
+    rowlab, dadd)`` -- ``laplacian_vals`` (when ``laplacian``),
+    ``ell_planes`` and ``diag_addend`` on the labels and d^-1/2 of ``verts``
+    [N, 2] int32 (each vertex's label and the bits of its d^-1/2), for the
+    rows whose id lies in [0, N), ``rows`` their int64 ids in order."""
+    labels = verts[:, 0].contiguous()
+    dinv = verts[:, 1].contiguous().view(torch.float32) if laplacian \
+        else None
+    n = labels.shape[0]
+    keep = (row_ids >= 0) & (row_ids < n)
+    if not bool(keep.all()):
+        cols, vals, row_ids = cols[keep], vals[keep], row_ids[keep]
+    rows = row_ids.long()
+    if dinv is not None:
+        vals = laplacian_vals(ELLBucket(cols=cols, vals=vals, row_ids=row_ids,
+                                        num_rows=int(rows.shape[0]),
+                                        width=int(cols.shape[1])), dinv)
+        drow = dinv[rows]
+    else:
+        drow = torch.ones(rows.shape, dtype=torch.float32, device=cols.device)
+    ylab, contrib = ell_planes(cols, vals, labels, winv)
+    rowlab, dadd = diag_addend(labels[rows], winv, drow, diag_aug)
+    return rows, ylab, contrib, rowlab, dadd
+
+
+def gee_spmm_gathered_ref(cols: torch.Tensor, vals: torch.Tensor,
+                          row_ids: torch.Tensor, verts: torch.Tensor,
+                          winv: torch.Tensor, out: torch.Tensor,
+                          num_classes: int, *, laplacian: bool = False,
+                          diag_aug: bool = False, correlation: bool = False,
+                          eps: float = 1e-30) -> torch.Tensor:
+    """Plain gathered launch: ``gee_spmm_fused_ref`` on its planes
+    (``gathered_planes``), written into ``out[row_ids]`` in place; rows
+    whose id lies outside [0, N) are skipped.  Returns ``out``."""
+    rows, ylab, contrib, rowlab, dadd = gathered_planes(
+        cols, vals, row_ids, verts, winv, laplacian=laplacian,
+        diag_aug=diag_aug)
+    out[rows] = gee_spmm_fused_ref(ylab, contrib, rowlab, dadd, num_classes,
+                                   correlation=correlation, eps=eps)
+    return out
 
 
 # -- retrieval scoring (port of the plain formulas in
@@ -162,6 +224,7 @@ def scored_topk_gathered_ref(queries: torch.Tensor, cand: torch.Tensor,
                        ids, k)
 
 
-__all__ = ["gee_spmm_ref", "row_norm_ref", "gee_spmm_fused_ref", "NEG_INF",
+__all__ = ["gee_spmm_ref", "row_norm_ref", "gee_spmm_fused_ref",
+           "diag_addend", "gathered_planes", "gee_spmm_gathered_ref", "NEG_INF",
            "pairwise_scores_ref", "gathered_scores_ref", "masked_topk",
            "scored_topk_ref", "scored_topk_gathered_ref"]

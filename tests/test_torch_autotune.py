@@ -27,7 +27,8 @@ from repro_torch.kernels import topk_score as ts
 from repro_torch.kernels.autotune import (REGISTRY, AutotuneRegistry,
                                           ceil_to, pow2_at_least, pow2_bucket)
 
-PORT_KERNELS = (gs.KERNEL_NAME, gs.FUSED_KERNEL_NAME, ts.PAIRWISE_KERNEL,
+PORT_KERNELS = (gs.KERNEL_NAME, gs.FUSED_KERNEL_NAME,
+                gs.GATHERED_KERNEL_NAME, ts.PAIRWISE_KERNEL,
                 ts.GATHERED_KERNEL)
 REF_KERNELS = ("gee_spmm", "gee_spmm_fused", "topk_pairwise",
                "topk_gathered")
@@ -178,7 +179,8 @@ def test_port_kernels_registered_under_names_of_their_own():
     assert not set(REGISTRY.kernels()) & set(REF_KERNELS)
 
 
-@pytest.mark.parametrize("kernel", (gs.KERNEL_NAME, gs.FUSED_KERNEL_NAME))
+@pytest.mark.parametrize("kernel", (gs.KERNEL_NAME, gs.FUSED_KERNEL_NAME,
+                                    gs.GATHERED_KERNEL_NAME))
 def test_contraction_geometry_is_the_policy(kernel, clean_registry):
     """With nothing recorded, every launch geometry resolves to exactly
     ``launch_geometry``'s."""
@@ -270,6 +272,10 @@ class _FakeLib:
         self.geometries.append((args[-3], args[-2]))
         return 0
 
+    def gee_gathered_launch(self, *args):
+        self.geometries.append((args[-3], args[-2]))
+        return 0
+
 
 @pytest.fixture
 def fake_launch(monkeypatch):
@@ -327,6 +333,56 @@ def test_measured_search_runs_at_launch_only_on_opt_in(
     n = len(fake_launch.geometries)
     gs.launch_contraction(ylab, contrib, None, None, 3)   # recorded: no search
     assert len(fake_launch.geometries) == n + 1
+
+
+def _gathered(r, d, k, n=50, seed=0):
+    """A gathered launch's operands on the CPU: cols, vals, row_ids,
+    verts, winv, out."""
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.integers(0, n, (r, d)).astype(np.int32)),
+            torch.from_numpy(rng.random((r, d)).astype(np.float32)),
+            torch.arange(r, dtype=torch.int32),
+            torch.from_numpy(rng.integers(-1, k, (n, 2)).astype(np.int32)),
+            torch.full((k,), 0.25), torch.zeros((n, k)))
+
+
+def test_gathered_launch_resolves_under_its_own_name(
+        fake_launch, clean_registry, monkeypatch):
+    """A geometry recorded for the plane kernels is never taken by the
+    gathered launch, and its measured search records under its own name."""
+    monkeypatch.delenv(at.ENV_MEASURE, raising=False)
+    monkeypatch.delenv(at.ENV_CACHE_PATH, raising=False)
+    ops = _gathered(6, 20000, 5)
+    vec = gs._vec(ops[0], ops[1])
+    key = gs.geometry_key(20000, 5, vec)
+    lanes, span, _ = gs.launch_geometry(20000, 5, vec)
+    for kernel in (gs.KERNEL_NAME, gs.FUSED_KERNEL_NAME):
+        clean_registry.record(kernel, key, (128, 8192, 3))
+    clean_registry.clear(gs.GATHERED_KERNEL_NAME)
+    assert gs.launch_gathered(*ops, 5, diag_aug=True) is ops[-1]
+    assert fake_launch.geometries[-1] == (lanes, span)
+    monkeypatch.setenv(at.ENV_MEASURE, "1")
+    gs.launch_gathered(*ops, 5)
+    cands = gs.geometry_candidates(gs.GATHERED_KERNEL_NAME, 20000, 5, vec)
+    assert len(fake_launch.geometries) == 1 + 4 * len(cands) + 1
+    winner = clean_registry.recorded(gs.GATHERED_KERNEL_NAME)[key]
+    assert winner in cands
+    assert fake_launch.geometries[-1] == winner[:2]
+    assert clean_registry.recorded(gs.KERNEL_NAME)[key] == (128, 8192, 3)
+
+
+@pytest.mark.parametrize("d", (6, 130))
+def test_gathered_launch_takes_16_byte_loads_only(fake_launch, clean_registry,
+                                                  monkeypatch, d):
+    """The gathered source is built for 16-byte loads alone: a width off
+    them raises before anything is launched or searched."""
+    monkeypatch.setenv(at.ENV_MEASURE, "1")
+    ops = _gathered(4, d, 3)
+    assert not gs._vec(ops[0], ops[1])
+    with pytest.raises(ValueError, match="16-byte loads"):
+        gs.launch_gathered(*ops, 3, laplacian=True)
+    assert fake_launch.geometries == []
+    assert not clean_registry.recorded(gs.GATHERED_KERNEL_NAME)
 
 
 def test_topk_measured_search_on_opt_in(sm132, clean_registry, monkeypatch):

@@ -7,7 +7,8 @@ that launch it on real rows only.
   lane of ``csrc/gee_kernels.cu``'s ``lane_sums`` walks must cover every
   slot of a row exactly once, the spans in ascending order.
 * ``gee_fused_from_bucketed`` and ``gee_cuda_from_bucketed`` launch each
-  bucket's leading ``num_rows`` rows, never its padding rows, on a
+  bucket's leading ``num_rows`` rows (one gathered launch a bucket), never
+  its padding rows, on a
   power-law graph whose wide buckets hold padding rows, and agree with the
   reference's ``GEEPlan`` and ``gee_scipy`` under all 8 option settings.
 
@@ -217,7 +218,7 @@ def test_bucketed_drivers_launch_real_rows_and_match_reference(
 
     # fused: the base packing, diag-aug folded in
     bell = tell.edges_to_bucketed_ell(port)
-    rows = _launched_rows(monkeypatch, gee_fused, "gee_spmm_fused")
+    rows = _launched_rows(monkeypatch, gee_fused, "gee_spmm_gathered")
     z = gee_fused.gee_fused_from_bucketed(bell, labels, k, opts).numpy()
     assert rows == [b.num_rows for b in bell.buckets]
     np.testing.assert_allclose(z, want_scipy, atol=ATOL)
@@ -229,7 +230,7 @@ def test_bucketed_drivers_launch_real_rows_and_match_reference(
             ops.gee_cuda_from_bucketed(bell, labels, k, opts)
         bell = tell.edges_to_bucketed_ell(tcont.add_self_loops(port))
         opts = dataclasses.replace(opts, diag_aug=False)
-    rows = _launched_rows(monkeypatch, ops, "gee_spmm")
+    rows = _launched_rows(monkeypatch, ops, "gee_spmm_gathered")
     z = ops.gee_cuda_from_bucketed(bell, labels, k, opts).numpy()
     assert rows == [b.num_rows for b in bell.buckets]
     np.testing.assert_allclose(z, want_scipy, atol=ATOL)

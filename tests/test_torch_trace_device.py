@@ -345,11 +345,9 @@ def test_fused_driver_spans(opts):
         lambda: gee_fused_from_bucketed(bell, labels, K, opts))
     torch.testing.assert_close(z, want_z, rtol=0, atol=0)
     want = ["prep.class_weights", "prep.degrees"]
-    for _ in bell.buckets:
-        want += (["prep.laplacian_vals"] if opts.laplacian else []) + [
-            "prep.planes", "prep.diag_addend", "kernel.gee_fused"]
     if opts.diag_aug or opts.correlation:
         want.append("prep.residual_fixup")
+    want += ["kernel.gee_fused"] * len(bell.buckets)
     assert [s.name for s in spans] == want
     assert all(s.parent_id == outer.span_id for s in spans)
     per_bucket = [s.args["bucket"] for s in spans if "bucket" in s.args]
@@ -367,15 +365,15 @@ def test_staged_driver_spans(opts):
     torch.testing.assert_close(z, want_z, rtol=0, atol=0)
     want = ["prep.class_weights"] + (["prep.degrees"] if opts.laplacian
                                      else [])
-    for _ in bell.buckets:
-        want += (["prep.laplacian_vals"] if opts.laplacian else []) + [
-            "prep.planes", "kernel.gee_spmm"]
+    want += ["kernel.gee_spmm"] * len(bell.buckets)
     assert [s.name for s in spans] == want
+    per_bucket = [s.args["bucket"] for s in spans if "bucket" in s.args]
+    assert per_bucket == [0, 1, 2, 3]
     assert all(s.parent_id == outer.span_id for s in spans)
 
 
 def test_a_warm_fit_opens_a_fixed_number_of_spans(monkeypatch):
-    """Default options on the fused path, four buckets: 50 spans would
+    """Default options on the fused path, four buckets: 20 spans would
     be a fit of cl-100k's ten; no span is opened per edge or per row."""
     monkeypatch.setenv("REPRO_GEE_FUSED", "1")
     edges, labels = _graph()
@@ -389,7 +387,7 @@ def test_a_warm_fit_opens_a_fixed_number_of_spans(monkeypatch):
     finally:
         t_trace.set_tracer(prev)
     spans = tr.events()
-    assert len(spans) == 5 + 2 + 2 + 4 * 4 + 1 == 26
+    assert len(spans) == 5 + 2 + 2 + 1 + 4 == 14
     byid = {s.span_id: s for s in spans}
 
     def parent(name):

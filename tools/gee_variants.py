@@ -135,7 +135,9 @@ def card() -> str:
 def captured_fits(torch, cs, tree_src: str) -> tuple[dict, dict]:
     """{graph: {kernel: [(args, kwargs)]}} of a default fused fit and a
     default staged fit of both graphs (``chip_smoke.Recorder``), and the
-    kernel wrappers by name."""
+    kernel wrappers by name.  A tree whose drivers make gathered launches
+    (``gee_spmm_gathered``) gives the plane calls they stand for
+    (``chip_smoke.planes_of``)."""
     sys.path.insert(0, tree_src)
     from repro_torch.core.api import GEEEmbedder
     from repro_torch.core.plan import PreparedGraph
@@ -153,16 +155,20 @@ def captured_fits(torch, cs, tree_src: str) -> tuple[dict, dict]:
     for g, (edges, labels, k) in graphs.items():
         prep = PreparedGraph(edges)
         calls = {}
+        gathered = hasattr(gee_fused, "gee_spmm_gathered")
         for name, module, flag in (("gee_spmm_fused", gee_fused, "1"),
                                    ("gee_spmm", ops, "0")):
             os.environ[gee_fused.ENV_FUSED] = flag
             try:
-                with cs.Recorder(module, name) as keep:
+                with cs.Recorder(module, "gee_spmm_gathered" if gathered
+                                 else name) as keep:
                     GEEEmbedder(num_classes=k, backend="cuda").fit_transform(
                         prep, labels)
             finally:
                 del os.environ[gee_fused.ENV_FUSED]
-            calls[name] = keep.calls
+            calls[name] = [cs.planes_of(torch, a, kw, flag == "1")
+                           for a, kw in keep.calls] if gathered \
+                else keep.calls
         out[g] = calls
     torch.cuda.synchronize()
     return out, {"gee_spmm_fused": gee_fused.gee_spmm_fused,
